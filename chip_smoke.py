@@ -10,26 +10,38 @@ and drives the port's main path once, at database scale:
 
   1. Card and build: the card's name and power limit, then every source of
      sylph_tpu_torch/csrc built, one nvcc each, all started together.
-  2. The main path through the normal entry,
-     ``python -m sylph_tpu_torch profile db.syldb sample.sylsp deep.sylsp``
-     (in-process, through cli.main), on a database generated from --seed:
-     100,000 genomes x 7,168 k-mers at c=200, k=31 (7.17e8 index k-mers,
-     the grange regime). ``sample.sylsp`` is the sketch of a ~1.07 Gbp read
-     set (5.3M distinct k-mers): the full sketches of 512 genomes at mean
-     multiplicities 1-6, the rest hashes absent from the database.
-     ``deep.sylsp`` is a deeper, more diverse sample (32M distinct k-mers,
-     512 other genomes planted): its slices are dense enough that the
-     engine emits full code grids (B4) instead of column-compacted ones.
-     Checks: (a) each sample's full [G, 64] histogram equals an exact
-     searchsorted oracle; (b) the device candidate mask contains every
-     genome the host f64 mask keeps; (c) the TSV lists exactly the planted
-     genomes of each sample. The kernels B1-B4 must have launched on this
-     run (B5 runs only when a chunk fails its conservation check).
-  3. Every kernel against its plain PyTorch version on the card, at the
+  2. Data from --seed: a database of 100,000 genomes x 7,168 k-mers at
+     c=200, k=31 (7.17e8 index k-mers, the grange regime); ``sample.sylsp``,
+     the sketch of a ~1.07 Gbp read set (5.3M distinct k-mers: the full
+     sketches of 512 genomes at mean multiplicities 1-6, the rest hashes
+     absent from the database); ``deep.sylsp``, a deeper, more diverse
+     sample (32M distinct k-mers, 512 other genomes planted), whose slices
+     are dense enough that the engine emits full code grids (B4); and
+     ``reads.fastq.gz``, 2^30 bases of 150-bp reads (bgzf, level 1: the
+     shape of a typical Illumina metagenome), each carrying one 31-mer whose
+     canonical hash is a database k-mer: the usable k-mers of 64 further
+     genomes (20% of them twice), the rest singletons spread over all
+     genomes. ``reads_host.sylsp`` is that file sketched with the host C
+     seeder, the oracle of the card's sketch.
+  3. The main path through the normal entry, ``python -m sylph_tpu_torch
+     profile db.syldb reads.fastq.gz sample.sylsp deep.sylsp
+     reads_host.sylsp`` (in-process, through cli.main): the raw reads are
+     seeded on the card (B7, B8) while their k-mers stream to it, then every
+     sample is swept (B1-B4). Checks: (a) each sample's full [G, 64]
+     histogram equals an exact searchsorted oracle; (b) the device candidate
+     mask contains every genome the host f64 mask keeps; (c) the TSV lists
+     exactly the planted genomes of sample and deep; (d) the card's sketch
+     of reads.fastq.gz equals the host seeder's; (e) that sample went
+     through the streamed device view and the one-fetch stream sweep
+     returned its mask; (f) its histogram through the device view equals
+     the oracle; (g) its TSV rows equal reads_host.sylsp's, are non-empty
+     and list only the 64 abundant genomes; (h) B1-B4, B7 and B8 launched
+     on this run (B5 runs only when a chunk fails its conservation check).
+  4. Every kernel against its plain PyTorch version on the card, at the
      main path's shapes (chunk 0 of the index and its real sample slices;
-     the index is hash-tiled, nt=4), bit for bit, plus overflow cases that
-     must be detected; each kernel's time, its plain version's and, for
-     B3, one library call's.
+     a [65,536, 256] batch of the real reads), bit for bit, plus overflow
+     cases that must be detected; each kernel's time, its plain version's,
+     its bound and, for B3 and B8, one library call's.
 
 Any failed check raises and the script exits non-zero. The last lines are
 the kernels JSON, the card's name and power limit, and
@@ -54,6 +66,10 @@ MIN_INDEX_KMERS = 1 << 27      # twice GRANGE_MIN: the grange regime by rule
 SAMPLE_KMERS = 5_300_000       # sketch of a ~1.07 Gbp read set at c=200
 DEEP_KMERS = 32_000_000
 PLANTED = 512                  # genomes planted in each sample
+READ_LEN = 150
+READ_BASES = 1 << 30           # a typical Illumina metagenome, 1.07 Gbp
+ABUNDANT = 64                  # genomes planted in the read set
+SEED_BATCH = 1 << 16           # reads per seeding batch (device_sketch.py)
 H100_BYTES_PER_S = 3.35e12     # HBM3, SXM data sheet
 # INT32 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper
 # whitepaper); the data sheet has no integer rate outside the tensor cores
@@ -62,6 +78,11 @@ H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # join.cu's lane loop: two ISETP (low word, then high word chained) and one
 # predicated IADD
 INT32_OPS_PER_COMPARE = 3
+# int32 instructions a window of seed.cu at least issues: the 64-bit bugged
+# Wang mix (seven steps of 64-bit shifts, adds and xors, 38), the canonical
+# min (3 to compare, 2 to select) and the threshold test (2); the k-mer
+# extraction is not counted
+INT32_OPS_PER_WINDOW = 45
 
 
 def _parse(argv):
@@ -90,25 +111,47 @@ def _smi() -> str:
 
 
 class _Stages(logging.Handler):
-    """Collects the port's stage_timer records: (stage, seconds)."""
+    """Collects the port's stage_timer records, (stage, seconds) in order,
+    and the ingest's per-phase busy seconds (its [ingest] record)."""
 
     def __init__(self):
         super().__init__(logging.DEBUG)
         self.items = []
+        self.ingest = {}
 
     def emit(self, rec):
         if isinstance(rec.msg, str) and rec.msg.startswith("[timing] %s:"):
             self.items.append((str(rec.args[0]), float(rec.args[1])))
+        elif hasattr(rec, "ingest_busy"):
+            self.ingest[str(rec.args[0])] = dict(
+                rec.ingest_busy, wall=rec.ingest_wall)
 
     def total(self, prefix: str) -> float:
         return sum(s for n, s in self.items if n.startswith(prefix))
+
+    def per_sample(self) -> dict:
+        """{sample path: {stage: s}}: every stage between two 'process
+        sample' records belongs to the second one's sample."""
+        out, cur = {}, {}
+        for name, s in self.items:
+            if name.startswith("process sample "):
+                cur["process"] = s
+                out[name[len("process sample "):]] = cur
+                cur = {}
+            elif not name.startswith(("load database", "grange index")):
+                key = name.split(" (")[0]
+                if key.startswith("load/sketch sample"):
+                    key = "load/sketch"
+                cur[key] = cur.get(key, 0.0) + s
+        return out
 
 
 # ---- data ---------------------------------------------------------------
 
 def _make_world(a, work):
-    """Write db.syldb, sample.sylsp and deep.sylsp; returns their paths
-    and each sample's planted genome names."""
+    """Write db.syldb, sample.sylsp and deep.sylsp; returns their paths,
+    each sample's planted genome names, the database k-mers (genome g's
+    are kmers[g*KPG:(g+1)*KPG]) and the planted genome ids."""
     from sylph_tpu_torch.core.types import GenomeSketch, SequencesSketch
     from sylph_tpu_torch.io import sylformat
 
@@ -149,44 +192,127 @@ def _make_world(a, work):
         path = os.path.join(work, f"{name}.sylsp")
         sylformat.write_sylsp(path, sk)
         out[name] = (path, {f"g{g:06d}.fa" for g in plant})
-    return db, out
+    return db, out, kmers, picks
+
+
+def _rc31(v):
+    """Reverse complements of 31-mers packed 2-bit MSB-first in uint64:
+    complement, then reverse the 2-bit groups (pairs, nibbles, bytes)."""
+    u = np.uint64
+    x = ~v & u((1 << 62) - 1)
+    m2, m4 = u(0x3333333333333333), u(0x0F0F0F0F0F0F0F0F)
+    x = ((x >> u(2)) & m2) | ((x & m2) << u(2))
+    x = ((x >> u(4)) & m4) | ((x & m4) << u(4))
+    return x.byteswap() >> u(2)
+
+
+def _usable(kmers_u64):
+    """True where the hash inverts to a canonical 31-mer, which a read can
+    then carry (about 1 in 8 of random hashes)."""
+    from sylph_tpu_torch.kmer.hashing import inv_mm_hash64_np
+    v = inv_mm_hash64_np(kmers_u64)
+    return (v < np.uint64(1 << 62)) & (v <= _rc31(v))
+
+
+def _make_reads(a, work, kmers, taken):
+    """Write reads.fastq.gz: READ_BASES of 150-bp reads, each with one
+    planted 31-mer whose canonical hash is a database k-mer. The usable
+    k-mers of ABUNDANT genomes outside ``taken`` are planted once each and
+    20% of them twice; the other reads carry singletons strided over the
+    remaining genomes (about 1% of each, below every threshold). Returns
+    (path, the abundant genome names, bases written)."""
+    from sylph_tpu_torch.io import bgzf
+    from sylph_tpu_torch.kmer.hashing import inv_mm_hash64_np
+
+    rng = np.random.default_rng(a.seed + 1)
+    KPG = a.kmers_per_genome
+    n_reads = READ_BASES // READ_LEN
+    free = np.setdiff1d(np.arange(GENOMES), taken)
+    abundant = np.sort(rng.choice(free, size=ABUNDANT, replace=False))
+    ab = np.concatenate([kmers[g * KPG:(g + 1) * KPG] for g in abundant])
+    ab = ab[_usable(ab)]
+    ab_plants = np.concatenate([ab, ab[rng.random(ab.size) < 0.20]])
+    n_bg = n_reads - ab_plants.size
+    stride = max(1, kmers.size // int(n_bg * 8.6))
+    cand_idx = np.arange(0, kmers.size, stride)
+    not_ab = np.ones(GENOMES, bool)
+    not_ab[abundant] = False
+    cand = kmers[cand_idx[not_ab[cand_idx // KPG]]]
+    del cand_idx
+    bg = cand[_usable(cand)]
+    del cand
+    if bg.size < n_bg:
+        bg = np.tile(bg, -(-n_bg // max(1, bg.size)))
+    plants = np.concatenate([ab_plants, bg[:n_bg]])
+    del bg
+    rng.shuffle(plants)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    tail = b"\n+\n" + b"I" * READ_LEN + b"\n"
+    sh = (2 * (30 - np.arange(31, dtype=np.uint64)))[None, :]
+
+    def text_chunks():
+        for s in range(0, n_reads, 1 << 16):
+            b = min(1 << 16, n_reads - s)
+            codes = rng.integers(0, 4, size=(b, READ_LEN), dtype=np.uint8)
+            v = inv_mm_hash64_np(plants[s:s + b])
+            pc = ((v[:, None] >> sh) & np.uint64(3)).astype(np.uint8)
+            off = rng.integers(0, READ_LEN - 31 + 1, size=b)
+            np.put_along_axis(codes, off[:, None] + np.arange(31)[None, :],
+                              pc, axis=1)
+            seqs = bases[codes]
+            yield b"".join(b"@r%d\n%s%s" % (s + i, seqs[i].tobytes(), tail)
+                           for i in range(b))
+
+    path = os.path.join(work, "reads.fastq.gz")
+    bgzf.write(path, text_chunks(), level=1)
+    return path, {f"g{g:06d}.fa" for g in abundant}, n_reads * READ_LEN
 
 
 # ---- main path ---------------------------------------------------------
 
-def _main_path(db, samples, work):
+def _main_path(db, reads, sketches, work):
     import torch
 
     from sylph_tpu_torch import cli
     from sylph_tpu_torch.engine import runner
     from sylph_tpu_torch.gpu import _cuda
 
-    engines = []
-    make_engine = runner._device_engine_for
+    engines, sketched = [], {}
+    make_engine, load_sample = runner._device_engine_for, runner._load_sample
 
     def keep(*args, **kw):
         engines.append(make_engine(*args, **kw))
         return engines[-1]
 
+    def keep_sample(opts, rf, *args, **kw):
+        sketched[rf[0]] = load_sample(opts, rf, *args, **kw)
+        return sketched[rf[0]]
+
     runner._device_engine_for = keep
+    runner._load_sample = keep_sample
     stages = _Stages()
     logging.getLogger("sylph").addHandler(stages)
     tsv = os.path.join(work, "out.tsv")
-    argv = ["profile", db] + [p for p, _ in samples.values()] + [
-        "-o", tsv, "--debug"]
-    _cuda.reset_launches()
-    t0 = time.perf_counter()
-    rc = cli.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
-    runner._device_engine_for = make_engine
-    logging.getLogger("sylph").removeHandler(stages)
+    argv = ["profile", db, reads, *sketches, "-o", tsv, "--debug"]
+    try:
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+    finally:
+        runner._device_engine_for = make_engine
+        runner._load_sample = load_sample
+        logging.getLogger("sylph").removeHandler(stages)
     if rc != 0:
         _fail(f"profile exited with {rc}")
+    per = stages.per_sample()
     split = {
         "wall_s": wall,
-        "load_s": stages.total("load database") + stages.total("load sample"),
+        "load_s": stages.total("load database") + sum(
+            v.get("load/sketch", 0.0) for k, v in per.items()
+            if k != reads),
         "index_build_s": stages.total("grange index build"),
         "upload_s": stages.total("grange index upload"),
         "device_mask_s": stages.total("pass-1 prefilter"),
@@ -194,14 +320,14 @@ def _main_path(db, samples, work):
         "pass2_s": stages.total("pass-2"),
     }
     print("main path: " + json.dumps(split))
+    print("main path per sample: " + json.dumps(per))
     print("main path launches: " + json.dumps(launches))
     for kname in ("B1_fill", "B2_join_codes_compact", "B3_repack",
-                  "B4_join_codes"):
+                  "B4_join_codes", "B7_seed", "B8_repack2"):
         if launches[kname] <= 0:
             _fail(f"{kname} was not launched on the main path")
-    return engines[0], tsv, launches
-
-
+    print("check (h): B1-B4, B7 and B8 launched on the main path")
+    return engines[0], tsv, launches, sketched[reads], per, stages.ingest
 def _oracle_hist(genomes, sk, sc, device):
     """[G, 64] exact histograms by searchsorted of every index k-mer into
     the sorted sample (tests/test_grange.py's oracle, on the card)."""
@@ -269,6 +395,97 @@ def _check_outputs(dc, samples, tsv):
     return loaded
 
 
+def _host_sketch(reads, work):
+    """reads_host.sylsp: the read set sketched with the host C seeder
+    (device None), the oracle of the card's sketch."""
+    from sylph_tpu_torch.core.sketch_reads import sketch_sequences
+    from sylph_tpu_torch.io import sylformat
+    t0 = time.perf_counter()
+    sk = sketch_sequences(reads, C, K, "reads_host", device=None)
+    path = os.path.join(work, "reads_host.sylsp")
+    sylformat.write_sylsp(path, sk)
+    print(f"host sketch: {time.perf_counter() - t0:.3f} s "
+          f"({sk.kmers.size} distinct k-mers)")
+    return path
+
+
+def _tsv_rows(tsv):
+    """{sample column: [the rest of each row]} of a profile TSV."""
+    rows = {}
+    with open(tsv) as f:
+        next(f)
+        for line in f:
+            s, rest = line.rstrip("\n").split("\t", 1)
+            rows.setdefault(s, []).append(rest)
+    return rows
+
+
+def _check_reads(dc, reads, card, host_path, abundant, tsv, per, ingest):
+    """Checks (d)-(g) of the raw-read sample, and its stage split."""
+    import torch
+
+    from sylph_tpu_torch.io import sylformat
+
+    host = sylformat.read_sylsp(host_path)
+    if not (np.array_equal(card.kmers, host.kmers)
+            and np.array_equal(card.counts, host.counts)
+            and card.mean_read_length == host.mean_read_length):
+        _fail("(d) the card's sketch of the reads differs from the host "
+              "seeder's")
+    print(f"check (d): card sketch == host sketch ({card.kmers.size} "
+          f"k-mers in insertion order, {int(card.counts.sum())} counted, "
+          f"mean read length {card.mean_read_length})")
+    eng = dc._grange
+    counters = dict(eng.counters)
+    if card._device_view is None or counters["device_view_sorts"] < 1 \
+            or counters["mask_stream_masks"] < 1:
+        _fail(f"(e) the raw-read sample missed the device view: {counters}")
+    print("check (e): device view and stream-sweep mask used: "
+          + json.dumps(counters))
+    got = dc.hists(card)
+    if eng.counters["device_view_sorts"] <= counters["device_view_sorts"]:
+        _fail("(f) hists() did not take the device view")
+    sk, sc = host.sorted_view()
+    want = _oracle_hist(dc._genome_sketches, sk, sc, dc.device)
+    if not np.array_equal(got, want):
+        _fail(f"(f) device-view histogram differs from the oracle in "
+              f"{int((got != want).sum())} bins")
+    print(f"check (f): device-view hist == oracle ({int(want.sum())} hits)")
+    rows = _tsv_rows(tsv)
+    mine, theirs = rows.get(reads, []), rows.get(host.sample_name, [])
+    listed = {r.split("\t")[0] for r in mine}
+    if not mine or mine != theirs or not listed <= abundant:
+        _fail(f"(g) reads TSV: {len(mine)} rows vs {len(theirs)} host rows; "
+              f"{len(listed - abundant)} listed genomes not planted")
+    print(f"check (g): reads TSV == reads_host TSV ({len(mine)} rows), all "
+          f"of them among the {len(abundant)} abundant genomes")
+
+    # stage split: the ingest's busy seconds per phase (summed over its
+    # threads) beside its wall; the device sort timed alone on the card
+    view = card._device_view
+    _cuda_ms(lambda: eng._sorted_device_sample(view), 1)
+    sort_ms = _cuda_ms(lambda: eng._sorted_device_sample(view), 5)
+    t0 = time.perf_counter()
+    np.argsort(card.kmers, kind="stable")
+    host_sort_s = time.perf_counter() - t0
+    mine_stages = per[reads]
+    split = {
+        "sketch": ingest.get(reads, {}),
+        "load_sketch_s": mine_stages.get("load/sketch"),
+        "stream_finalize_s": mine_stages.get("stream finalize"),
+        "device_sort_ms": sort_ms,
+        "host_sort_s": host_sort_s,
+        "mask_sweep_s": mine_stages.get("device grange candidate mask"),
+        "prefilter_s": mine_stages.get("pass-1 prefilter"),
+        "pass1_s": mine_stages.get("pass-1 exact stats"),
+        "pass2_s": mine_stages.get("pass-2 reassigned stats"),
+    }
+    print("raw-read sample stages: " + json.dumps(split))
+    print("mask phase per sample (pass-1 prefilter s): " + json.dumps(
+        {k: v.get("pass-1 prefilter") for k, v in per.items()}))
+    torch.cuda.synchronize()
+
+
 # ---- kernels against their plain versions --------------------------------
 
 def _cuda_ms(fn, reps):
@@ -301,7 +518,7 @@ def _same(name, got, want):
     return err
 
 
-def _kernels(dc, loaded, launches):
+def _kernels(dc, loaded, launches, reads):
     import torch
 
     from sylph_tpu_torch.gpu import bucket_fill as bf
@@ -328,6 +545,9 @@ def _kernels(dc, loaded, launches):
 
     def record(name, src, replaces, err, ms, plain_ms, nbytes, ops,
                library_ms=None):
+        """One kernels-JSON row; the bound is the larger of the bytes the
+        call must move over the HBM rate and its int32 operations over the
+        INT32 issue rate."""
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = ops / H100_INT32_OPS_PER_S * 1e3
         rows.append(dict(
@@ -444,7 +664,72 @@ def _kernels(dc, loaded, launches):
         _fail("CAPR overflow was not detected (n_live == n_comp)")
     print(f"overflow checks: CS=1 fill lost weight {w_lost}; CAPR={capr} "
           f"kept {n_comp} of {int(got[1])} live codes")
+    _seed_kernels(dc.device, reads, record)
     return rows
+
+
+def _seed_kernels(device, reads, record):
+    """B7 and B8 on one [SEED_BATCH, 256] batch of the real reads (the
+    main path's shape for 150-bp reads) against their plain versions."""
+    import torch
+
+    from sylph_tpu_torch.engine import device_sketch as ds
+    from sylph_tpu_torch.gpu import bucket_fill as bf
+    from sylph_tpu_torch.gpu import seeding as sd
+    from sylph_tpu_torch.io.fastx import parse_block, stream_blocks
+
+    blocks = stream_blocks(reads)
+    px = parse_block(next(blocks), reads)
+    blocks.close()
+    N, L = SEED_BATCH, 256
+    if px.n_records < N:
+        _fail(f"first block holds {px.n_records} reads, fewer than {N}")
+    packed, lens = ds._upload_batch(
+        *ds._build_batch(px, L, np.arange(N)), device)
+    for c, k, name in ((C, K, "B7_seed"), (5, 21, "B7_seed k=21 c=5")):
+        got = sd.seed_packed(packed, lens, c=c, k=k)
+        want = sd.seed_packed_plain(packed, lens, c=c, k=k)
+        err = _same(name, got, want)
+        print(f"{name}: {int(got[1].sum())} of {N * L} windows kept")
+        if name == "B7_seed":
+            record(name, "seed.cu", "sylph_tpu/tpu/pallas_seeding.py:152",
+                   err, _cuda_ms(lambda: sd.seed_packed(packed, lens, c=c,
+                                                         k=k), 20),
+                   _cuda_ms(lambda: sd.seed_packed_plain(packed, lens, c=c,
+                                                         k=k), 3),
+                   N * L // 4 + N * 4 + N * L * 9,
+                   N * L * INT32_OPS_PER_WINDOW)
+
+    # B8: the batch's first condense_stream pass, as the main path runs it
+    rows_ = ds._seed_rows(packed, lens, C, K, L)
+    stream = rows_.reshape(-1)
+    W = L - K + 1
+    plan = bf.condense_plan(stream.numel(), (W / C) / rows_.shape[1])
+    row, cap = plan[0]
+    got = bf.repack2_flat(stream, row=row, cap=cap)
+    err = _same("B8_repack2", (got,), (bf.repack2_flat_plain(
+        stream, row=row, cap=cap),))
+    live = stream != -1
+    record("B8_repack2", "repack.cu", "sylph_tpu/tpu/bucket_fill.py:182",
+           err, _cuda_ms(lambda: bf.repack2_flat(stream, row=row, cap=cap),
+                         50),
+           _cuda_ms(lambda: bf.repack2_flat_plain(stream, row=row, cap=cap),
+                    5),
+           stream.numel() * 8 + got.numel() * 8, 0,
+           library_ms=_cuda_ms(lambda: torch.masked_select(stream, live),
+                               50))
+    print(f"B8 plan for this batch: {plan} (row, cap) passes")
+    # overflow: a window capacity below its live count drops survivors;
+    # the caller's count check (live out vs per-read counts) must see it
+    n_live = int(live.sum())
+    small = bf.repack2_flat(stream, row=16384, cap=256)
+    _same("B8_repack2 overflow", (small,), (bf.repack2_flat_plain(
+        stream, row=16384, cap=256),))
+    kept = int((small != -1).sum())
+    if kept >= n_live:
+        _fail("B8 overflow was not detected (live count unchanged)")
+    print(f"overflow check: B8 at cap 256 of 16384 kept {kept} of "
+          f"{n_live} survivors; the count check sees the loss")
 
 
 def main(argv=None) -> int:
@@ -464,26 +749,37 @@ def main(argv=None) -> int:
         wall_s=time.perf_counter() - t0, per_source_s=_cuda.BUILD_SECONDS)))
     for name, text in _cuda.BUILD_LOG.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
+    reduced = {}
     if a.kmers_per_genome != KMERS_PER_GENOME:
-        print("reduced: " + json.dumps(dict(
-            kmers_per_genome=[KMERS_PER_GENOME, a.kmers_per_genome],
-            index_kmers=GENOMES * a.kmers_per_genome)))
+        reduced.update(kmers_per_genome=[KMERS_PER_GENOME,
+                                         a.kmers_per_genome],
+                       index_kmers=GENOMES * a.kmers_per_genome)
+    if reduced:
+        print("reduced: " + json.dumps(reduced))
 
-    # generated sketches (about 6 GB), removed at the end
+    # generated data (about 7 GB), removed at the end
     work = os.path.abspath(os.path.join("build", "chip_smoke"))
     os.makedirs(work, exist_ok=True)
     try:
         t0 = time.perf_counter()
-        db, samples = _make_world(a, work)
+        db, samples, kmers, picks = _make_world(a, work)
         print(f"generate: {time.perf_counter() - t0:.3f} s "
               f"({GENOMES} genomes x {a.kmers_per_genome} k-mers)")
-        dc, tsv, launches = _main_path(db, samples, work)
+        t0 = time.perf_counter()
+        reads, abundant, n_bases = _make_reads(a, work, kmers, picks)
+        del kmers
+        print(f"generate reads: {time.perf_counter() - t0:.3f} s "
+              f"({n_bases} bases, {os.path.getsize(reads)} bytes bgzf)")
+        host_path = _host_sketch(reads, work)
+        dc, tsv, launches, card, per, ingest = _main_path(
+            db, reads, [p for p, _ in samples.values()] + [host_path], work)
         g = dc._grange.gidx
         print(f"index: {len(g.chunk_keys)} chunks of [{g.B}, {g.CI}], "
               f"nt={g.nt}, {g.spill_kmers.size} spilled, "
               f"{g.n_heavy} heavy runs")
         loaded = _check_outputs(dc, samples, tsv)
-        rows = _kernels(dc, loaded, launches)
+        _check_reads(dc, reads, card, host_path, abundant, tsv, per, ingest)
+        rows = _kernels(dc, loaded, launches, reads)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": rows}))

@@ -4,8 +4,11 @@ Layout follows the JAX package so each counterpart is easy to find:
   - gpu/     device layer: int64 key conventions, the grange engine and the
              wrappers of the hand-written CUDA kernels (csrc/*.cu) with their
              plain PyTorch versions
-  - engine/  query/profile orchestration, candidate prefilter, device engine
-  - io/, core/, stats/, utils/  host code copied from sylph_tpu
+  - engine/  query/profile/sketch orchestration, candidate prefilter,
+             device engine, device read seeding and the streamed sample
+  - io/, core/, kmer/, stats/, utils/  host code copied from sylph_tpu
+  - native/  trimmed copies of sylph_tpu's host C sources, built with cc
+             into build/native/ at first use
 
 The port imports torch and numpy, never jax and nothing of sylph_tpu. Its
 entry points run on the card unless the caller asks for the CPU.

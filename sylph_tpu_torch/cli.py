@@ -1,10 +1,12 @@
-"""Command-line interface: ``python -m sylph_tpu_torch {profile, query}``.
+"""Command-line interface: ``python -m sylph_tpu_torch {sketch, profile,
+query}``.
 
-The flags are sylph_tpu's ``profile``/``query`` flags (sylph
-src/cmdline.rs), less ``--tpu``, ``--serve``, ``--profile-trace`` and the
-multi-host flags, plus ``--device {cuda,cpu}`` (default cuda: containment
-runs on the GPU unless the CPU is asked for). Inputs are pre-sketched
-``.syldb`` databases and ``.sylsp`` samples.
+The flags are sylph_tpu's (sylph src/cmdline.rs), less ``--tpu``,
+``--serve``, ``--profile-trace`` and the multi-host flags, plus ``--device
+{cuda,cpu}`` (default cuda: seeding and containment run on the GPU unless
+the CPU is asked for). ``sketch`` takes reads (``-r``, ``-1/-2``, fastq
+files) and writes ``.sylsp`` samples; ``profile``/``query`` take a
+``.syldb`` database and ``.sylsp`` samples or raw reads.
 """
 
 import argparse
@@ -12,6 +14,7 @@ import logging
 import sys
 
 from .engine.runner import ContainOptions, contain
+from .engine.sketch_cmd import SketchOptions, sketch
 
 
 def _setup_logging(trace: bool = False, debug: bool = False):
@@ -21,6 +24,39 @@ def _setup_logging(trace: bool = False, debug: bool = False):
         stream=sys.stderr, level=level,
         format="%(asctime)s %(levelname)s [%(name)s] %(message)s",
         datefmt="%Y-%m-%dT%H:%M:%SZ", force=True)
+
+
+def _device_flag(p, what: str):
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help=f"where {what} runs (default: the GPU; there is no "
+                   "fallback to the CPU unless it is asked for)")
+
+
+def _add_sketch(sub):
+    p = sub.add_parser(
+        "sketch", help="Sketch reads into samples: each sample.fq -> "
+        "sample.fq.sylsp (genome sketching is not ported yet).")
+    p.add_argument("files", nargs="*", help="fastq files; gzip optional")
+    p.add_argument("-d", "--sample-output-directory",
+                   dest="sample_output_dir", default="./")
+    p.add_argument("-r", "--reads", nargs="+", default=[])
+    p.add_argument("-g", "--genomes", nargs="+", default=[])
+    p.add_argument("-1", "--first-pairs", dest="first_pair", nargs="+",
+                   default=[])
+    p.add_argument("-2", "--second-pairs", dest="second_pair", nargs="+",
+                   default=[])
+    p.add_argument("-S", "--sample-names", dest="sample_names", nargs="+",
+                   default=None)
+    p.add_argument("--lS", dest="list_sample_names", default=None)
+    p.add_argument("-k", type=int, default=31)
+    p.add_argument("-c", type=int, default=200)
+    p.add_argument("-t", dest="threads", type=int, default=3)
+    p.add_argument("--no-dedup", dest="no_dedup", action="store_true")
+    p.add_argument("--fpr", type=float, default=0.0001)
+    p.add_argument("--trace", action="store_true")
+    p.add_argument("--debug", action="store_true")
+    _device_flag(p, "read seeding")
+    return p
 
 
 def _add_contain(sub, name, helptext):
@@ -68,18 +104,17 @@ def _add_contain(sub, name, helptext):
     p.add_argument("--no-adjust", dest="no_adj", action="store_true")
     p.add_argument("--mean-coverage", dest="mean_coverage",
                    action="store_true")
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="where containment runs (default: the GPU; there "
-                   "is no fallback to the CPU unless it is asked for)")
+    _device_flag(p, "read seeding and containment")
     return p
 
 
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="sylph-torch",
-        description="GPU (PyTorch/CUDA) genome ANI queries and taxonomic "
-        "profiling of pre-sketched metagenomic samples.")
+        description="GPU (PyTorch/CUDA) read sketching, genome ANI "
+        "queries and taxonomic profiling of metagenomic samples.")
     sub = ap.add_subparsers(dest="mode")
+    _add_sketch(sub)
     _add_contain(sub, "profile", "Species-level taxonomic profiling with "
                  "abundances and ANIs.")
     _add_contain(sub, "query", "Coverage-adjusted ANI querying between "
@@ -113,6 +148,15 @@ def _contain_options(a) -> ContainOptions:
         mean_coverage=a.mean_coverage, device=a.device)
 
 
+def _sketch_options(a) -> SketchOptions:
+    return SketchOptions(
+        files=a.files, sample_output_dir=a.sample_output_dir, reads=a.reads,
+        genomes=a.genomes, first_pair=a.first_pair,
+        second_pair=a.second_pair, sample_names=a.sample_names,
+        list_sample_names=a.list_sample_names, k=a.k, c=a.c,
+        threads=a.threads, no_dedup=a.no_dedup, fpr=a.fpr, device=a.device)
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     ap = build_parser()
@@ -131,7 +175,11 @@ def main(argv=None) -> int:
         return 2
     _setup_logging(args.trace, args.debug)
     try:
-        contain(_contain_options(args), pseudotax=(args.mode == "profile"))
+        if args.mode == "sketch":
+            sketch(_sketch_options(args))
+        else:
+            contain(_contain_options(args),
+                    pseudotax=(args.mode == "profile"))
     except SystemExit as e:
         return int(e.code or 0)
     except BrokenPipeError:

@@ -22,6 +22,14 @@ SAMPLE_FILE_SUFFIX = ".sylsp"
 QUERY_FILE_SUFFIX_VALID = (QUERY_FILE_SUFFIX, ".sylqueries")
 SAMPLE_FILE_SUFFIX_VALID = (SAMPLE_FILE_SUFFIX, ".sylsample")
 
+# Read-dedup fingerprinting is only consulted while a k-mer's count is below
+# this (single-end path; src/constants.rs:14).
+MAX_DEDUP_COUNT = 4
+
+# Default false-positive rate of the paired-end dedup filter
+# (src/constants.rs:16); > 0 selects the native fold's bloom filter.
+DEFAULT_FPR = 0.0001
+
 # Default minimum adjusted ANI filters (src/constants.rs:10-11).
 MIN_ANI_DEF = 0.9        # query
 MIN_ANI_P_DEF = 0.95     # profile

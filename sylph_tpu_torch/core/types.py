@@ -55,6 +55,10 @@ class SequencesSketch:
     mean_read_length: float = 0.0
     _sorted: Optional[Tuple[np.ndarray, np.ndarray]] = field(
         default=None, repr=False, compare=False)
+    # the sample's streamed device-resident copy (engine/device_sketch.py
+    # DeviceSampleView) when it was sketched from raw reads on a device
+    _device_view: Optional[object] = field(
+        default=None, repr=False, compare=False)
 
     def sorted_view(self) -> Tuple[np.ndarray, np.ndarray]:
         if self._sorted is None:

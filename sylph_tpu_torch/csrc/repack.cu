@@ -1,23 +1,26 @@
-// B3: windowed stream compaction of a SENT-coded int32 code stream.
+// B3 and B8: windowed, order-preserving stream compaction of a pad-coded
+// stream (pad -1).
 //
 // Replaces sylph_tpu/tpu/bucket_fill.py::_repack1_flat_kernel (wrapper
-// repack1_flat), which condenses each row-slot window with an LSB-first
-// butterfly over [row/256, 256] tiles. Output contract: the stream is
-// padded with SENT to nwin = 8 * ceil(n / (8 * row)) windows; window w's
-// non-SENT entries, in order, fill out[w*cap : w*cap + cap]; entries past
-// cap are dropped (the caller's n_live == n_comp check sees it) and the
-// rest of the window's output is SENT.
+// repack1_flat, int32 gid*64+mult codes, SENT -1) and
+// ::_repack2_flat_kernel (wrapper repack2_flat, the (hi, lo) uint32 pair
+// streams of read seeding, which are one int64 key here with pad -1), both
+// of which condense each row-slot window with an LSB-first butterfly over
+// [row/256, 256] tiles. Output contract: the stream is padded with -1 to
+// nwin = 8 * ceil(n / (8 * row)) windows; window w's live (non-pad)
+// entries, in order, fill out[w*cap : w*cap + cap]; entries past cap are
+// dropped (callers check conservation) and the rest of the window's output
+// is -1. The two Pallas bodies are one algorithm on two payloads, so one
+// kernel template serves both.
 //
-// Bound on the H100: bytes. One read of the stream (4 B a slot) and one
-// write of nwin*cap slots; a few hundred MB per profile at GTDB scale,
-// tens of microseconds at 3.35 TB/s.
+// Bound on the H100: bytes. One read of the stream and one write of
+// nwin*cap slots (4 B a slot for B3, 8 B for B8).
 //
 // Design: one 1024-thread block per window. Each pass takes 1024 slots:
 // a warp ballot ranks the live entries inside each warp, warp 0 scans the
 // 32 warp counts, and every live entry is written at its window rank while
 // that rank is below cap. The block stops reading once its window is full.
-// The SENT padding of the input is never materialised: slots past n read as
-// SENT.
+// The pad of the input is never materialised: slots past n read as pad.
 
 #include "common.cuh"
 
@@ -25,20 +28,22 @@
 
 namespace {
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-repack_kernel(const int* __restrict__ v, long long n, long long row,
-              long long cap, int* __restrict__ out) {
+repack_kernel(const T* __restrict__ v, long long n, long long row,
+              long long cap, T* __restrict__ out) {
   __shared__ int wcount[THREADS / 32];
   __shared__ int wtotal;
+  const T pad = (T)-1;
   const long long win = blockIdx.x;
   const long long start = win * row;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* o = out + win * cap;
+  T* o = out + win * cap;
   long long base = 0;                     // live entries placed so far
   for (long long off = 0; off < row && base < cap; off += THREADS) {
     const long long i = start + off + threadIdx.x;
-    const int x = (off + threadIdx.x < row && i < n) ? v[i] : CODE_SENT;
-    const bool live = x != CODE_SENT;
+    const T x = (off + threadIdx.x < row && i < n) ? v[i] : pad;
+    const bool live = x != pad;
     const unsigned m = __ballot_sync(0xffffffffu, live);
     if (lane == 0) wcount[warp] = __popc(m);
     __syncthreads();
@@ -59,17 +64,32 @@ repack_kernel(const int* __restrict__ v, long long n, long long row,
     __syncthreads();                      // wcount/wtotal reused next pass
   }
   for (long long r = min(base, cap) + threadIdx.x; r < cap; r += THREADS)
-    o[r] = CODE_SENT;
+    o[r] = pad;
+}
+
+template <typename T>
+int launch(const T* v, long long n, long long row, long long cap,
+           long long nwin, T* out, void* stream) {
+  if (nwin > 0) {
+    repack_kernel<T><<<static_cast<unsigned>(nwin), THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(v, n, row, cap,
+                                                            out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// B3: int32 code streams (SENT = -1)
 extern "C" int repack_launch(const int* v, long long n, long long row,
                              long long cap, long long nwin, int* out,
                              void* stream) {
-  if (nwin > 0) {
-    repack_kernel<<<static_cast<unsigned>(nwin), THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(v, n, row, cap, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<int>(v, n, row, cap, nwin, out, stream);
+}
+
+// B8: int64 hash-key streams (pad = -1)
+extern "C" int repack64_launch(const long long* v, long long n,
+                               long long row, long long cap, long long nwin,
+                               long long* out, void* stream) {
+  return launch<long long>(v, n, row, cap, nwin, out, stream);
 }

@@ -11,6 +11,7 @@ engine.
 """
 
 import logging
+import threading
 from typing import List
 
 import numpy as np
@@ -42,6 +43,7 @@ class DeviceContainment:
                 f"({self.GRANGE_MIN}): the merge and bucket regimes of "
                 "smaller databases are not ported yet")
         self._hists_cache = {}      # id(sample) -> (ref, [G, 64])
+        self._mask_matches_hint = None    # last stream sweep's matches
         with stage_timer(f"grange index build ({total} k-mers)"):
             kmers = np.concatenate(
                 [g.genome_kmers for g in genome_sketches]).astype(np.uint64)
@@ -76,6 +78,13 @@ class DeviceContainment:
         cap = int(0.7 * total) // max(chunk_bytes, 1)
         return None if cap >= n_chunks else max(1, cap)
 
+    def sample_streamer(self):
+        """A DeviceSampleStream for a sample about to be sketched from raw
+        reads: the runner hands its push to the sketcher, so the sample's
+        k-mers upload while the file is still decoding."""
+        from .device_sketch import DeviceSampleStream
+        return DeviceSampleStream(self.device)
+
     def candidates_mask(self, sample: SequencesSketch, mask_kwargs: dict):
         """[G] bool candidate mask computed ON DEVICE, or None when the
         index has heavy runs (their marker bins expand on the host) or a
@@ -94,11 +103,31 @@ class DeviceContainment:
             return candidate_mask_device(hist_dev, self._n_kmers_dev,
                                          **mask_kwargs)
 
-        skmers, scounts = _warm_table(sample)()
+        dv = sample._device_view
+        table_fn = _warm_table(sample, dv is not None)
         with stage_timer(
                 f"device grange candidate mask ({g.m} k-mers x "
                 f"{sample.kmers.size} sample k-mers)"):
-            out = self._grange.hists(skmers, scounts, mask_fn=mask_fn)
+            out = None
+            if dv is not None:
+                # one-dispatch stream sweep: a single fused probe + mask
+                # fetch. The previous sample's measured match total (x1.5
+                # margin, rounded up to a half-octave step) sizes the code
+                # compaction for the actual hit rate; an underestimate
+                # fails the probe and the sweep reruns without the hint.
+                hint = self._mask_matches_hint
+                if hint:
+                    hint = int(2.0 ** (np.ceil(2.0 * np.log2(
+                        max(hint * 1.5, 2.0))) / 2.0)) + 1
+                ms = self._grange.candidate_mask_stream(dv, mask_fn,
+                                                        n_matches=hint)
+                if ms is None and hint:
+                    ms = self._grange.candidate_mask_stream(dv, mask_fn)
+                if ms is not None:
+                    out, self._mask_matches_hint = ms
+            if out is None:
+                out = self._grange.hists(None, None, mask_fn=mask_fn,
+                                         device_view=dv, table_fn=table_fn)
         if out.ndim == 2:
             # a chunk failed its conservation check and the engine returned
             # the full histogram: cache it for the host prefilter path
@@ -107,7 +136,7 @@ class DeviceContainment:
                 self._hists_cache.pop(next(iter(self._hists_cache)))
             return None
         if g.spill_kmers.size:
-            sh = self._grange._spill_hist(skmers, scounts)
+            sh = self._grange._spill_hist(*table_fn())
             out = out | (sh[:, 1:].sum(axis=1) > 0)
         return out
 
@@ -116,11 +145,13 @@ class DeviceContainment:
         hit = self._hists_cache.get(id(sample))
         if hit is not None and hit[0] is sample:
             return hit[1]
-        skmers, scounts = _warm_table(sample)()
+        dv = sample._device_view
+        table_fn = _warm_table(sample, dv is not None)
         with stage_timer(
                 f"device grange hists ({self._grange.gidx.m} k-mers x "
                 f"{sample.kmers.size} sample k-mers)"):
-            return self._grange.hists(skmers, scounts)
+            return self._grange.hists(None, None, device_view=dv,
+                                      table_fn=table_fn)
 
     def genome_covs(self, genome_index: int, sample: SequencesSketch,
                     winner=None, self_group: int = -1):
@@ -131,7 +162,21 @@ class DeviceContainment:
                          winner, self_group)
 
 
-def _warm_table(sample):
-    """() -> (sorted_kmers_u64, counts) supplier for the grange sweep."""
-    sk, sc = sample.sorted_view()
-    return lambda: (sk.astype(np.uint64, copy=False), sc)
+def _warm_table(sample, overlap: bool):
+    """() -> (sorted_kmers_u64, counts) supplier for the grange sweep.
+
+    With ``overlap`` (a device-resident sample view is present) the host
+    sort runs on a side thread, overlapping the device sweep: only the
+    spill probe and the per-chunk path consume the table. Without a view
+    the sweep needs the table at once, so it is sorted inline."""
+    if not overlap:
+        sk, sc = sample.sorted_view()
+        return lambda: (sk.astype(np.uint64, copy=False), sc)
+    th = threading.Thread(target=sample.sorted_view, daemon=True)
+    th.start()
+
+    def table_fn():
+        th.join()
+        sk, sc = sample.sorted_view()
+        return sk.astype(np.uint64, copy=False), sc
+    return table_fn

@@ -4,9 +4,11 @@ Behavioral spec: sylph ``contain`` (src/contain.rs:115-351) and its helpers
 ``get_genome_sketches`` (:482-542), ``get_seq_sketch`` (:544-599),
 ``get_stats`` (:601-814). Containment always runs through the device engine
 (engine/device_exec.py) on ``opts.device``; statistics stay in host f64, so
-TSVs are byte-identical to sylph_tpu's host engine. This slice takes
-pre-sketched inputs (.syldb + .sylsp): raw fasta/fastq inputs raise, since
-sketching is not ported yet. Samples run one after another in input order.
+TSVs are byte-identical to sylph_tpu's host engine. Samples are .sylsp
+sketches or raw reads (fastq, -r, -1/-2), which are sketched on the same
+device while their k-mers stream to it; raw genome fasta inputs raise, since
+genome sketching is not ported yet. Samples run one after another: raw-read
+samples first, then sketches, as the JAX package orders them.
 """
 
 import logging
@@ -15,12 +17,15 @@ import sys
 from dataclasses import dataclass, field
 from typing import List, Optional, TextIO
 
-from ..constants import (DEFAULT_C, DEFAULT_K, DEFAULT_MIN_COUNT_CORRECT,
+from ..constants import (DEFAULT_C, DEFAULT_FPR, DEFAULT_K,
+                         DEFAULT_MIN_COUNT_CORRECT,
                          DEFAULT_MIN_NUMBER_KMERS, DEFAULT_MIN_SPACING,
                          DEFAULT_REDUNDANT_ANI, MIN_ANI_DEF, MIN_ANI_P_DEF,
                          QUERY_FILE_SUFFIX_VALID, SAMPLE_FILE_SUFFIX_VALID)
+from ..core.sketch_reads import sketch_pair_sequences, sketch_sequences
 from ..core.types import AniResult, GenomeSketch, SequencesSketch
 from ..io import sylformat
+from ..io.fastx import is_fasta, is_fastq
 from ..stats.contain_stats import StatParams, coverage_stats
 from ..utils.timing import stage_timer
 from .containment import WinnerTable, genome_covs, genome_covs_batch
@@ -31,7 +36,7 @@ from .profile import (assign_groups, derep_if_reassign_threshold,
 
 log = logging.getLogger("sylph")
 
-_SKETCHING_NOT_PORTED = "sketching is not ported yet"
+_GENOME_SKETCHING_NOT_PORTED = "genome sketching is not ported yet"
 
 
 @dataclass
@@ -139,35 +144,41 @@ def get_stats(opts: ContainOptions, genome: GenomeSketch, genome_index: int,
 
 
 def _classify_files(opts: ContainOptions):
-    """src/contain.rs:149-223, for pre-sketched inputs. Raw fasta/fastq
-    inputs (and read pairs) raise: sketching is not ported yet."""
+    """src/contain.rs:149-223 -> (genome sketches, read sketches, raw read
+    inputs as [file] or [R1, R2]). Raw genome fasta inputs raise: genome
+    sketching is not ported yet."""
     all_files = list(opts.files)
     if opts.file_list:
         with open(opts.file_list) as f:
             all_files.extend(line.rstrip("\n") for line in f)
-    genome_sketch_files, read_sketch_files, raw = [], [], []
+    genome_sketch_files, genome_files = [], []
+    read_sketch_files, read_files = [], []
     for f in all_files:
         if any(f.endswith(s) for s in QUERY_FILE_SUFFIX_VALID):
             genome_sketch_files.append(f)
         elif any(f.endswith(s) for s in SAMPLE_FILE_SUFFIX_VALID):
             read_sketch_files.append(f)
-        elif _is_raw_sequence(f):
-            raw.append(f)
+        elif is_fasta(f):
+            genome_files.append(f)
+        elif is_fastq(f):
+            read_files.append([f])
         else:
             log.warning("%s file extension is not a sketch or a fasta/fastq "
                         "file.", f)
-    raw += list(opts.reads) + list(opts.first_pair) + list(opts.second_pair)
-    if raw:
+    if genome_files:
         raise NotImplementedError(
-            f"{_SKETCHING_NOT_PORTED}: sketch {', '.join(raw)} with "
-            "`sylph sketch` (sylph_tpu) and pass the .syldb/.sylsp files")
-    return genome_sketch_files, read_sketch_files
-
-
-def _is_raw_sequence(path: str) -> bool:
-    """fasta/fastq by extension (sylph src/sketch.rs:95-121)."""
-    exts = (".fa", ".fna", ".fasta", ".fq", ".fnq", ".fastq")
-    return any(path.endswith(s) or path.endswith(s + ".gz") for s in exts)
+            f"{_GENOME_SKETCHING_NOT_PORTED}: sketch "
+            f"{', '.join(genome_files)} into a .syldb with `sylph sketch` "
+            "(sylph_tpu)")
+    if len(opts.first_pair) != len(opts.second_pair):
+        log.error("Different number of paired sequences (-1, -2) for "
+                  "sketching. Exiting.")
+        raise SystemExit(1)
+    for a, b in zip(opts.first_pair, opts.second_pair):
+        read_files.append([a, b])
+    for r in opts.reads:
+        read_files.append([r])
+    return genome_sketch_files, read_sketch_files, read_files
 
 
 def _get_genome_sketches(genome_sketch_files) -> List[GenomeSketch]:
@@ -193,23 +204,69 @@ def _get_genome_sketches(genome_sketch_files) -> List[GenomeSketch]:
     return sketches
 
 
-def _get_seq_sketch(path: str, genome_c: int) -> Optional[SequencesSketch]:
-    """src/contain.rs:544-577 for a .sylsp input."""
-    try:
-        sk = sylformat.read_sylsp(path)
-    except (OSError, sylformat.SketchFormatError):
-        log.error("The sketch `%s` is not a valid sketch. Perhaps it is "
-                  "an older incompatible version ", path)
-        raise SystemExit(1)
-    if sk.c > genome_c:
-        log.error("%s value of -c is %s; this is greater than the "
-                  "smallest value of -c = %s for a genome sketch. "
-                  "Exiting.", path, sk.c, genome_c)
+def _get_seq_sketch(opts: ContainOptions, read_file: List[str],
+                    is_sketch: bool, genome_c: int, genome_k: int,
+                    device, streamer=None) -> Optional[SequencesSketch]:
+    """src/contain.rs:544-599: a .sylsp input, or raw reads sketched with
+    seeding on ``device`` while their k-mers stream to ``streamer``."""
+    if is_sketch:
+        path = read_file[0]
+        try:
+            sk = sylformat.read_sylsp(path)
+        except (OSError, sylformat.SketchFormatError):
+            log.error("The sketch `%s` is not a valid sketch. Perhaps it is "
+                      "an older incompatible version ", path)
+            raise SystemExit(1)
+        if sk.c > genome_c:
+            log.error("%s value of -c is %s; this is greater than the "
+                      "smallest value of -c = %s for a genome sketch. "
+                      "Exiting.", path, sk.c, genome_c)
+            return None
+        if sk.c < genome_c:
+            log.info("%s value of -c for reads is %s; this is smaller than "
+                     "the -c for a genome sketch. Using the larger -c %s "
+                     "instead.", path, sk.c, genome_c)
+        return sk
+    if genome_c < opts.c:
+        log.error("%s error: value of -c for contain = %s -- greater than "
+                  "the smallest value of -c for a genome sketch = %s. "
+                  "Continuing without sketching.", read_file[0], opts.c,
+                  genome_c)
         return None
-    if sk.c < genome_c:
-        log.info("%s value of -c for reads is %s; this is smaller than "
-                 "the -c for a genome sketch. Using the larger -c %s "
-                 "instead.", path, sk.c, genome_c)
+    if genome_k != opts.k:
+        log.error("%s -k %s is not equal to -k %s found in sketches. "
+                  "Continuing without sketching.", read_file[0], opts.k,
+                  genome_k)
+        return None
+    on_segment = streamer.push if streamer is not None else None
+    if len(read_file) == 1:
+        return sketch_sequences(read_file[0], opts.c, opts.k, None, False,
+                                device=device, on_segment=on_segment)
+    # on-the-fly paired sketching uses DEFAULT_FPR like the reference
+    # (src/contain.rs:591)
+    return sketch_pair_sequences(read_file[0], read_file[1], opts.c, opts.k,
+                                 None, False, fpr=DEFAULT_FPR, device=device,
+                                 on_segment=on_segment)
+
+
+def _load_sample(opts: ContainOptions, read_file: List[str],
+                 is_sketch: bool, genome_sketches, device_engine):
+    """Read or sketch one sample. A raw-read sample streams its k-mers to
+    the device during the sketch; the finished stream becomes the
+    sample's device view (runner.py:564-585 of the JAX package)."""
+    streamer = None if is_sketch else device_engine.sample_streamer()
+    sk = None
+    try:
+        sk = _get_seq_sketch(opts, read_file, is_sketch,
+                             genome_sketches[0].c, genome_sketches[0].k,
+                             device_engine.device, streamer=streamer)
+    finally:
+        if streamer is not None:
+            if sk is not None:
+                with stage_timer("stream finalize"):
+                    sk._device_view = streamer.finalize(sk.kmers, sk.counts)
+            else:
+                streamer.close()
     return sk
 
 
@@ -355,12 +412,12 @@ def contain(opts: ContainOptions, pseudotax: bool,
     if pseudotax:
         opts.pseudotax = True
     log.info("Obtaining sketches...")
-    genome_sketch_files, read_sketch_files = _classify_files(opts)
+    genome_sketch_files, read_sketch_files, read_files = _classify_files(opts)
     if not genome_sketch_files:
         log.error("No genome files found; see sylph query/profile -h for "
                   "help. Exiting")
         raise SystemExit(1)
-    if not read_sketch_files:
+    if not read_sketch_files and not read_files:
         log.error("No read files found; see sylph query/profile -h for "
                   "help. Exiting")
         raise SystemExit(1)
@@ -389,18 +446,22 @@ def contain(opts: ContainOptions, pseudotax: bool,
         else:
             out = sys.stdout
     print_header(opts.pseudotax, out, opts.estimate_unknown)
-    for path in read_sketch_files:
-        with stage_timer(f"load sample {path}"):
-            sample = _get_seq_sketch(path, genome_sketches[0].c)
+    samples = ([(rf, False) for rf in read_files]
+               + [([f], True) for f in read_sketch_files])
+    for rf, is_sketch in samples:
+        with stage_timer(f"load/sketch sample {rf[0]}"):
+            sample = _load_sample(opts, rf, is_sketch, genome_sketches,
+                                  device_engine)
         if sample is not None:
-            with stage_timer(f"process sample {path}",
+            with stage_timer(f"process sample {rf[0]}",
                              items=len(genome_sketches)):
                 results = process_sample(opts, sample, genome_sketches,
                                          device_engine)
             for r in results:
                 print_ani_result(r, opts.pseudotax, out)
             out.flush()
-        log.info("Finished sample %s.", path)
+        log.info("Finished %ssample %s.", "paired " if len(rf) > 1 else "",
+                 rf[0])
     log.info("sylph finished.")
     if close_out:
         out.close()

@@ -24,22 +24,32 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("fill", "join", "repack")
+SOURCES = ("fill", "join", "repack", "seed")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"B1_fill": 0, "B2_join_codes_compact": 0, "B3_repack": 0,
-            "B4_join_codes": 0, "B5_join_counts": 0}
+            "B4_join_codes": 0, "B5_join_counts": 0, "B7_seed": 0,
+            "B8_repack2": 0}
 BUILD_LOG = {}                 # source name -> nvcc/ptxas output
 BUILD_SECONDS = {}             # source name -> wall seconds of its nvcc
 
 _LIBS = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()   # kernels launch from the ingest's threads
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``name``'s launch count (wrappers call it where they
+    launch their kernel, and nowhere else)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -116,6 +126,8 @@ _SIGNATURES = {                 # C entry point -> argument types
     "fill_cells": [_P, _P] + [_I64] * 7 + [_P, _P, _P],
     "join_launch": [_I32, _P, _P, _P, _P] + [_I64] * 8 + [_P, _P, _P],
     "repack_launch": [_P] + [_I64] * 4 + [_P, _P],
+    "repack64_launch": [_P] + [_I64] * 4 + [_P, _P],
+    "seed_launch": [_P, _P, _I64, _I32, _I32, ctypes.c_uint64, _P, _P, _P],
 }
 
 

@@ -1,7 +1,9 @@
-"""Cell-grid fill (B1) and code-stream repack (B3) wrappers (counterpart of
-sylph_tpu/tpu/bucket_fill.py).
+"""Cell-grid fill (B1), code-stream repack (B3) and hash-stream repack (B8)
+wrappers (counterpart of sylph_tpu/tpu/bucket_fill.py), and the read
+seeding's stream condensation (counterpart of tpu/pipeline.py's
+condense_stream).
 
-The JAX package builds both from butterfly routing networks because the
+The JAX package builds these from butterfly routing networks because the
 TPU has no cheap scatter; the CUDA kernels (csrc/fill.cu, csrc/repack.cu)
 keep the output contracts and drop the networks. On a CPU tensor each
 wrapper runs its plain PyTorch version; on a CUDA tensor it launches its
@@ -10,11 +12,11 @@ kernel or raises.
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _cuda
 from .bucket_join import _sample_to_buckets
-from .keys import SENT
 
 _LANES = 256
 _WPB = 8          # windows per block of the JAX kernel: output length unit
@@ -54,7 +56,7 @@ def bucket_fill(skey: torch.Tensor, sw: torch.Tensor, base: int, *,
             ctypes.c_int64(CS), ctypes.c_int64(NC), _cuda.ptr(out_k),
             _cuda.ptr(out_w), _cuda.stream_ptr(skey))
     _cuda.check(lib, rc, "fill_cells")
-    _cuda.LAUNCHES["B1_fill"] += 1
+    _cuda.count_launch("B1_fill")
     return out_k, out_w
 
 
@@ -64,21 +66,48 @@ def _n_windows(n: int, row: int) -> int:
 
 
 def repack1_flat_plain(v: torch.Tensor, *, row: int,
-                        cap: int) -> torch.Tensor:
-    """Plain version of B3: per ``row``-slot window, the non-SENT entries
-    in order in the first ``cap`` slots, overflow dropped, SENT after."""
+                       cap: int) -> torch.Tensor:
+    """Plain version of B3 (int32 codes) and B8 (int64 keys): per
+    ``row``-slot window, the non-pad (-1) entries in order in the first
+    ``cap`` slots, overflow dropped, -1 after."""
     n = v.shape[0]
     nwin = _n_windows(n, row)
-    vin = torch.full((nwin * row,), SENT, dtype=v.dtype, device=v.device)
+    vin = torch.full((nwin * row,), -1, dtype=v.dtype, device=v.device)
     vin[:n] = v
     vin = vin.view(nwin, row)
-    live = vin != SENT
+    live = vin != -1
     li = live.to(torch.int64)
     rank = torch.cumsum(li, dim=1) - li
-    out = torch.full((nwin, cap), SENT, dtype=v.dtype, device=v.device)
+    out = torch.full((nwin, cap), -1, dtype=v.dtype, device=v.device)
     w, i = (live & (rank < cap)).nonzero(as_tuple=True)
     out[w, rank[w, i]] = vin[w, i]
     return out.view(-1)
+
+
+repack2_flat_plain = repack1_flat_plain     # B8's plain version
+
+
+def _repack(v: torch.Tensor, row: int, cap: int, dtype: torch.dtype,
+            entry: str, kname: str) -> torch.Tensor:
+    """Shared wrapper of B3 and B8 (one kernel template, csrc/repack.cu)."""
+    if row % _LANES != 0 or cap % _LANES != 0 or cap > row:
+        raise ValueError(f"row/cap must be multiples of {_LANES} with "
+                         f"cap <= row (got row={row} cap={cap})")
+    v = v.reshape(-1)
+    if v.device.type == "cpu":
+        return repack1_flat_plain(v, row=row, cap=cap)
+    _cuda.require(v, "v", dtype, 1, v.device)
+    nwin = _n_windows(v.shape[0], row)
+    out = torch.empty(nwin * cap, dtype=dtype, device=v.device)
+    lib = _cuda.library("repack")
+    with torch.cuda.device(v.device):
+        rc = getattr(lib, entry)(
+            _cuda.ptr(v), ctypes.c_int64(v.shape[0]), ctypes.c_int64(row),
+            ctypes.c_int64(cap), ctypes.c_int64(nwin), _cuda.ptr(out),
+            _cuda.stream_ptr(v))
+    _cuda.check(lib, rc, entry)
+    _cuda.count_launch(kname)
+    return out
 
 
 def repack1_flat(v: torch.Tensor, *, row: int, cap: int) -> torch.Tensor:
@@ -86,21 +115,43 @@ def repack1_flat(v: torch.Tensor, *, row: int, cap: int) -> torch.Tensor:
     ``cap`` slots each (the stream is SENT-padded to whole blocks of 8
     windows, as the JAX kernel's grid requires: output length is
     nwin * cap). Callers verify conservation downstream."""
-    if row % _LANES != 0 or cap % _LANES != 0 or cap > row:
-        raise ValueError(f"row/cap must be multiples of {_LANES} with "
-                         f"cap <= row (got row={row} cap={cap})")
-    v = v.reshape(-1)
-    if v.device.type == "cpu":
-        return repack1_flat_plain(v, row=row, cap=cap)
-    _cuda.require(v, "v", torch.int32, 1, v.device)
-    nwin = _n_windows(v.shape[0], row)
-    out = torch.empty(nwin * cap, dtype=torch.int32, device=v.device)
-    lib = _cuda.library("repack")
-    with torch.cuda.device(v.device):
-        rc = lib.repack_launch(
-            _cuda.ptr(v), ctypes.c_int64(v.shape[0]), ctypes.c_int64(row),
-            ctypes.c_int64(cap), ctypes.c_int64(nwin), _cuda.ptr(out),
-            _cuda.stream_ptr(v))
-    _cuda.check(lib, rc, "repack_launch")
-    _cuda.LAUNCHES["B3_repack"] += 1
-    return out
+    return _repack(v, row, cap, torch.int32, "repack_launch", "B3_repack")
+
+
+def repack2_flat(v: torch.Tensor, *, row: int, cap: int) -> torch.Tensor:
+    """B8: B3's contract on an int64 hash-key stream (pad -1), the port's
+    form of the JAX package's (hi, lo) pair repack. Order is preserved:
+    the stream feeds the order-dependent dedup fold."""
+    return _repack(v, row, cap, torch.int64, "repack64_launch",
+                   "B8_repack2")
+
+
+def condense_plan(n: int, density: float):
+    """(row, cap) of each repack pass that condense_stream runs over an
+    n-slot stream at estimated live share ``density`` (the JAX package's
+    tpu/pipeline.py:251-280 arithmetic): the widest window (1024..32768
+    slots) whose capacity, expectation + 6 sigma + 16 rounded up to 256,
+    stays well under its width, until the stream is 0.75 dense."""
+    plan = []
+    while density < 0.75 and n > 4 * 1024:
+        row = 1024
+        while row < 32768 and row * 2 * density < 2048 and n > 4 * row * 2:
+            row *= 2
+        exp = row * density
+        cap = 256 * int(np.ceil((exp + 6.0 * np.sqrt(exp) + 16) / 256))
+        if cap >= row:
+            break
+        plan.append((row, cap))
+        n = _n_windows(n, row) * cap
+        density = density * row / cap
+    return plan
+
+
+def condense_stream(keys: torch.Tensor, live_fraction: float) -> torch.Tensor:
+    """Repack (B8) a sparse pad-coded int64 hash stream until it is
+    reasonably dense; order is preserved. Each pass's capacity keeps a
+    window's overflow probability near 1e-9; callers compare the live
+    count with their own and redo losslessly on a mismatch."""
+    for row, cap in condense_plan(keys.numel(), live_fraction):
+        keys = repack2_flat(keys, row=row, cap=cap)
+    return keys

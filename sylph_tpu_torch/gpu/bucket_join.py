@@ -224,7 +224,7 @@ def join_counts(ikey: torch.Tensor, dk: torch.Tensor, dw: torch.Tensor, *,
     _launch_join(_MODE_COUNTS, ikey, None, dk, dw,
                  TB=block_rows(ikey.shape[0]), nt=nt, tile=tile, G=0,
                  CAPR=0, out=out, nlive_part=None)
-    _cuda.LAUNCHES["B5_join_counts"] += 1
+    _cuda.count_launch("B5_join_counts")
     return out
 
 
@@ -240,7 +240,7 @@ def join_codes(ikey: torch.Tensor, gid: torch.Tensor, dk: torch.Tensor,
     _launch_join(_MODE_CODES, ikey, gid, dk, dw,
                  TB=block_rows(ikey.shape[0]), nt=nt, tile=tile, G=G,
                  CAPR=0, out=out, nlive_part=None)
-    _cuda.LAUNCHES["B4_join_codes"] += 1
+    _cuda.count_launch("B4_join_codes")
     return out
 
 
@@ -265,5 +265,5 @@ def join_codes_compact(ikey: torch.Tensor, gid: torch.Tensor,
                        device=ikey.device)
     _launch_join(_MODE_COMPACT, ikey, gid, dk, dw, TB=TB, nt=nt, tile=tile,
                  G=G, CAPR=CAPR, out=out, nlive_part=part)
-    _cuda.LAUNCHES["B2_join_codes_compact"] += 1
+    _cuda.count_launch("B2_join_codes_compact")
     return out, part.sum(dtype=torch.int64)

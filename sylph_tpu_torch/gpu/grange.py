@@ -11,11 +11,13 @@
     marker slot plus a CSR of their genome ids.
 
   per sample (device):
-    the sorted sample is sliced per chunk on the host (searchsorted on the
-    chunk hash edges). For each chunk the B1 kernel fills the sample cell
-    grid, the B2 kernel compares every index slot against its cell's sample
-    lanes and emits column-compacted gid*64 + multiplicity codes (B4 when
-    the column compaction would not shrink the block), and the B3 kernel
+    the sorted sample is sliced per chunk (searchsorted on the chunk hash
+    edges: on the host for a host table, on the device for a streamed
+    device-resident sample, which the device also sorts). For each chunk
+    the B1 kernel fills the sample cell grid, the B2 kernel compares every
+    index slot against its cell's sample lanes and emits column-compacted
+    gid*64 + multiplicity codes (B4 when the column compaction would not
+    shrink the block), and the B3 kernel
     repacks the sparse code stream. One bincount over all chunks' codes
     gives the per-genome coverage histograms [G, 64] that pass-1 statistics
     need. Conservation scalars (fill weight in == out, live codes before ==
@@ -493,6 +495,11 @@ class GRangeEngine:
         n_res = (n_chunks if max_resident_chunks is None
                  else max(0, min(max_resident_chunks, n_chunks)))
         self._dev_chunks = {i: self._upload(i) for i in range(n_res)}
+        self._edges = None
+        # streamed-sample sweeps: device sorts, masks from the one-fetch
+        # stream sweep, and stream sweeps whose probe sent them back
+        self.counters = {"device_view_sorts": 0, "mask_stream_masks": 0,
+                         "mask_stream_rejected": 0}
 
     def _upload(self, i: int):
         g = self.gidx
@@ -557,8 +564,10 @@ class GRangeEngine:
         — each chunk's [start, end) in the sorted sample, the padded slice
         length, the per-cell sample capacity and the code-density
         estimate that sizes the compaction capacities."""
+        return self._plan_slices(slice_sample(self.gidx, skmers_u64))
+
+    def _plan_slices(self, slices):
         gidx = self.gidx
-        slices = slice_sample(gidx, skmers_u64)
         max_n = max((e - s for s, e in slices), default=0)
         P = _quantize_p(float(max(max_n, 1)))
         if gidx.nt > 1:
@@ -578,8 +587,126 @@ class GRangeEngine:
             np.uint8)).to(self.device)
         return skey, sw
 
-    def hists(self, skmers_u64: np.ndarray, scounts: np.ndarray,
-              mask_fn=None) -> np.ndarray:
+    # ---- the streamed device-resident sample --------------------------
+
+    def _sorted_device_sample(self, device_view):
+        """(keys int64 [n], weights uint8 [n]) of a streamed sample,
+        sorted by key on the device. Only the n live keys enter the sort
+        (the -1 pad would sort first); they are distinct (dedup output), so
+        the order equals the host table's."""
+        self.counters["device_view_sorts"] += 1
+        keys, w = device_view.live()
+        skey, order = torch.sort(keys, stable=True)
+        return skey, w[order]
+
+    def _edges_dev(self):
+        """(first, last) int64 hash of every chunk, on the device."""
+        if self._edges is None:
+            e = np.ascontiguousarray(self.gidx.edges_u64, np.uint64)
+            self._edges = torch.from_numpy(e.view(np.int64)).to(self.device)
+        return self._edges
+
+    def _device_slices(self, skey: torch.Tensor):
+        """Per-chunk (starts, ends) into a device-sorted sample, computed on
+        the device: searchsorted of the chunk edges, clipped to n by
+        construction (only live keys are sorted)."""
+        e = self._edges_dev()
+        starts = torch.searchsorted(skey, e[:, 0].contiguous(), side="left")
+        ends = torch.searchsorted(skey, e[:, 1].contiguous(), side="right")
+        return starts, ends
+
+    def _device_view_slices(self, skey: torch.Tensor):
+        """[start, end) per chunk of a device-sorted sample (one small
+        fetch), equal to slice_sample on the host-sorted table."""
+        starts, ends = self._device_slices(skey)
+        se = torch.stack((starts, ends), dim=1).cpu().numpy()
+        return [(int(s), int(e)) for s, e in se]
+
+    def hist_device_stream(self, skey: torch.Tensor, w_dev: torch.Tensor,
+                           n_matches: Optional[int] = None):
+        """All-device histogram of a SORTED unique sample (``skey`` int64
+        [n], ``w_dev`` its weights): chunk offsets on the device, per-chunk
+        slices gathered on the device, nothing crosses to the host.
+
+        Returns (hist [g_eff*H+1] device int64, probe, P): ``probe`` is a
+        device int64 [2] of (summed conservation differences, longest
+        chunk slice); the histogram is exact iff probe[0] == 0 and
+        probe[1] <= P. The slice length P and the cell capacity are sized
+        from the sample's mean per chunk, and the code compaction from an
+        estimated match count (``n_matches``, else twice the sample), not
+        from the measured slices, so no fetch gates the dispatch; a
+        violation shows in the probe and callers take the per-chunk path
+        instead."""
+        gidx = self.gidx
+        G = self._GE
+        n_chunks = len(gidx.chunk_keys)
+        t = int(skey.shape[0])
+        mean = t / n_chunks
+        P = _quantize_p(1.3 * mean + 6.0 * np.sqrt(mean) + 64, t)
+        starts, ends = self._device_slices(skey)
+        if gidx.nt > 1:
+            CS = cell_cs(max(1, t // n_chunks), gidx.B * gidx.nt)
+        else:
+            CS = sample_cs(max(1, t // n_chunks), gidx.B, granularity=8)
+        # live codes per chunk: the measured match count (x1.25) when the
+        # caller knows it, else the 2x-unique worst case
+        est_codes = ((1.25 * n_matches) if n_matches is not None
+                     else 2.0 * t) / n_chunks
+        density = min(1.0, max(est_codes, 512.0)
+                      / max(1, gidx.B * gidx.CI))
+        sw = w_dev.to(torch.int32)
+        lane = torch.arange(P, device=skey.device)
+        codes_parts, diag_parts = [], []
+        nxt = self._chunk_dev(0) if n_chunks else None
+        for i in range(n_chunks):
+            cur = nxt                # prefetch overlaps the previous join
+            nxt = self._chunk_dev(i + 1) if i + 1 < n_chunks else None
+            idx = starts[i] + lane
+            m = idx < ends[i]
+            idx = idx.clamp(max=max(t - 1, 0))
+            c_key = torch.where(m, skey[idx], KEY_PAD)
+            c_w = torch.where(m, sw[idx], 0)
+            ikey, gidg = cur
+            cod, nl, nc, wlost = _chunk_codes(
+                ikey, gidg, c_key, c_w, int(gidx.bases[i]),
+                width=gidx.width, B=gidx.B, CS=CS, n_genomes=G,
+                density=density, nt=gidx.nt, subwidth=gidx.subwidth,
+                ov=gidx.ov)
+            codes_parts.append(cod)
+            diag_parts.append((nl - nc).abs() + wlost)
+        hist = hist_from_codes(torch.cat(codes_parts), n_genomes=G)
+        probe = torch.stack((torch.stack(diag_parts).sum(),
+                             (ends - starts).max()))
+        return hist, probe, P
+
+    def candidate_mask_stream(self, device_view, mask_fn,
+                              n_matches: Optional[int] = None):
+        """([G] bool candidate mask, measured match total) of a streamed
+        sample through one all-device sweep (sort, device offsets,
+        hist_device_stream) and ONE fetch of probe + match total + mask.
+        None when the index has heavy runs (their marker bins expand on
+        the host) or the probe shows a capacity violation (callers then
+        take hists(device_view=...))."""
+        if self.gidx.n_heavy or device_view is None:
+            return None
+        G, H = self._GE, HIST_H
+        skey, w = self._sorted_device_sample(device_view)
+        hist, probe, P = self.hist_device_stream(skey, w,
+                                                 n_matches=n_matches)
+        mask = mask_fn(hist[:G * H])
+        matches = hist[:G * H].sum().reshape(1)
+        v = torch.cat([probe, matches, mask.to(torch.int64)]).cpu().numpy()
+        if int(v[0]) != 0 or int(v[1]) > P:
+            log.debug("mask stream conservation check failed; the "
+                      "per-chunk path follows")
+            self.counters["mask_stream_rejected"] += 1
+            return None
+        self.counters["mask_stream_masks"] += 1
+        return v[3:].astype(bool), int(v[2])
+
+    def hists(self, skmers_u64: Optional[np.ndarray],
+              scounts: Optional[np.ndarray], mask_fn=None,
+              device_view=None, table_fn=None) -> np.ndarray:
         """[G, HIST_H] exact (clamped) per-genome multiplicity histograms
         of a sorted, unique (kmers, counts) sample table.
 
@@ -587,12 +714,34 @@ class GRangeEngine:
         [G, H] fetch for the prefilter: when every chunk passed its
         conservation check and the index has no heavy runs, only the [G]
         mask comes back (callers detect it by ndim). The mask covers grid
-        counts only; spill hits are the caller's to OR in."""
+        counts only; spill hits are the caller's to OR in.
+
+        With a ``device_view`` (a streamed device-resident sample) the
+        device sorts and slices the sample; the host table is needed only
+        for the spill side channel, so callers may pass None and a
+        ``table_fn`` returning (sorted_kmers_u64, counts) on demand, which
+        lets the host sort overlap the device sweep."""
         gidx = self.gidx
         G, H = self._GE, HIST_H
-        sk = np.ascontiguousarray(skmers_u64, np.uint64)
-        slices, P, CS, density = self.plan(sk)
-        skey, sw = self.upload_sample(sk, scounts)
+        tbl = [skmers_u64, scounts]
+
+        def _tbl():
+            if tbl[0] is None:
+                tbl[0], tbl[1] = table_fn()
+            return tbl[0], tbl[1]
+
+        t0 = time.perf_counter()
+        if device_view is not None:
+            skey, sw = self._sorted_device_sample(device_view)
+            slices, P, CS, density = self._plan_slices(
+                self._device_view_slices(skey))
+        else:
+            sk = np.ascontiguousarray(_tbl()[0], np.uint64)
+            slices, P, CS, density = self.plan(sk)
+            skey, sw = self.upload_sample(sk, _tbl()[1])
+        log.debug("[timing] grange hists: sample sort + slices %.3f s "
+                  "(%s)", time.perf_counter() - t0,
+                  "device" if device_view is not None else "host")
 
         t0 = time.perf_counter()
         parts = []          # (codes, |nl-nc| + w_lost, nl, (i, smp))
@@ -658,7 +807,7 @@ class GRangeEngine:
             hist += h.cpu().numpy()
         out = self._fold_heavy(hist)
         if gidx.spill_kmers.size:
-            out += self._spill_hist(sk, scounts)
+            out += self._spill_hist(*_tbl())
         log.debug("[timing] grange hists: hist fetch+fold %.3f s",
                   time.perf_counter() - t1)
         return out

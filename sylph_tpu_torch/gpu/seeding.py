@@ -1,0 +1,156 @@
+"""FracMinHash read seeding on the device (counterpart of
+sylph_tpu/tpu/seeding.py and pallas_seeding.py::seed_hashes_pallas, B7).
+
+Behavioral spec: sylph's scalar seeding loop (src/seeding.rs:86-146): for
+every k-mer window take ``min(forward, revcomp)`` by 64-bit compare, hash
+it with the bugged Wang mix, keep iff ``hash < u64::MAX / c``.
+
+Reads arrive in the 2-bit packed wire format: [N, L/16] words, 16 bases a
+word, LSB-first (engine/device_sketch.py::_pack16_rows), held as int32
+tensors with the uint32 bits. A hash is one int64 with the uint64 bits
+(gpu/keys.py). Torch has no unsigned 64-bit shifts or compares on the CPU,
+so the plain versions use wrapping int64 adds, masked logical right shifts
+and a sign-flipped threshold compare; the CUDA kernel (csrc/seed.cu) uses
+uint64_t throughout.
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _cuda
+
+_INT64_MIN = -(1 << 63)
+
+
+def _check_ck(c: int, k: int) -> None:
+    if not 1 <= k <= 31:
+        raise ValueError(f"k must be in 1..31, got {k}")
+    if c < 1:
+        raise ValueError(f"c must be >= 1, got {c}")
+
+
+def threshold(c: int) -> int:
+    """u64::MAX / c (src/seeding.rs:108) as a Python int."""
+    return ((1 << 64) - 1) // c
+
+
+def _as_i64(u: int) -> int:
+    """The int64 with the bits of a uint64 value."""
+    return u - (1 << 64) if u >= (1 << 63) else u
+
+
+def _lsr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def mm_hash64(key: torch.Tensor) -> torch.Tensor:
+    """The reference's bugged Wang mix (src/seeding.rs:4-15) on int64 bit
+    patterns: the first step is ~(key + (key << 21))."""
+    key = ~(key + (key << 21))
+    key = key ^ _lsr(key, 24)
+    key = key + (key << 3) + (key << 8)          # key * 265
+    key = key ^ _lsr(key, 14)
+    key = key + (key << 2) + (key << 4)          # key * 21
+    key = key ^ _lsr(key, 28)
+    return key + (key << 31)
+
+
+def unpack_bases(packed: torch.Tensor) -> torch.Tensor:
+    """[N, L/16] packed words -> [N, L] int64 2-bit codes
+    (pipeline.py::unpack_bases)."""
+    N, nw = packed.shape
+    sh = torch.arange(0, 32, 2, device=packed.device, dtype=torch.int64)
+    w = packed.to(torch.int64) & 0xFFFFFFFF
+    return ((w.unsqueeze(-1) >> sh) & 3).reshape(N, nw * 16)
+
+
+def _pow2_parts(m: int):
+    """m as descending powers of two (31 -> [16, 8, 4, 2, 1])."""
+    return [1 << b for b in range(m.bit_length() - 1, -1, -1) if m >> b & 1]
+
+
+def canonical_kmers(b: torch.Tensor, k: int) -> torch.Tensor:
+    """Canonical k-mers (int64, < 2^62) of every window of a [N, L] int64
+    code batch -> [N, L-k+1], by the log-doubling composition of
+    tpu/seeding.py::_build_mers on whole int64 k-mers:
+    F_{a+b}[i] = F_a[i] << 2b | F_b[i+a], R_{a+b}[i] = R_a[i] | R_b[i+a] << 2a.
+    Canonical = min(forward, revcomp), forward on ties."""
+    L = b.shape[1]
+    pf, pr = {1: b}, {1: 3 - b}
+    p = 1
+    while p * 2 <= k:
+        f, r = pf[p], pr[p]
+        n = f.shape[1] - p
+        pf[2 * p] = (f[:, :n] << (2 * p)) | f[:, p:]
+        pr[2 * p] = r[:, :n] | (r[:, p:] << (2 * p))
+        p *= 2
+    parts = _pow2_parts(k)
+    size = parts[0]
+    accf, accr = pf[size], pr[size]
+    for q in parts[1:]:
+        n = L - size - q + 1
+        accf = (accf[:, :n] << (2 * q)) | pf[q][:, size:size + n]
+        accr = accr[:, :n] | (pr[q][:, size:size + n] << (2 * size))
+        size += q
+    W = L - k + 1
+    # both k-mers are < 2^62, so the signed min is the uint64 min
+    return torch.minimum(accf[:, :W], accr[:, :W])
+
+
+def seed_hashes(bases: torch.Tensor, lengths: torch.Tensor, *, c: int,
+                k: int):
+    """(hash, keep), each [N, L-k+1], for a [N, L] batch of 2-bit codes:
+    tpu/seeding.py::seed_hashes in int64. keep is True iff the window lies
+    inside its read (pos + k <= lengths) AND the hash clears
+    ``u64::MAX / c``."""
+    _check_ck(c, k)
+    N, L = bases.shape
+    W = L - k + 1
+    if W < 1:
+        raise ValueError(f"padded read length {L} < k {k}")
+    h = mm_hash64(canonical_kmers(bases.to(torch.int64), k))
+    thr = _as_i64(threshold(c)) ^ _INT64_MIN
+    keep = (h ^ _INT64_MIN) < thr
+    pos = torch.arange(W, device=bases.device)
+    keep &= (pos + k)[None, :] <= lengths.to(torch.int64)[:, None]
+    return h, keep
+
+
+def seed_packed_plain(packed: torch.Tensor, lengths: torch.Tensor, *,
+                      c: int, k: int):
+    """Plain version of B7: (hash int64, keep bool), each [N, L], from the
+    packed batch; windows past L read bases as 0 (their keep is False)."""
+    bases = F.pad(unpack_bases(packed), (0, k - 1))
+    return seed_hashes(bases, lengths, c=c, k=k)
+
+
+def seed_packed(packed: torch.Tensor, lengths: torch.Tensor, *, c: int,
+                k: int):
+    """B7: per-window canonical k-mer hash and FracMinHash keep of a packed
+    read batch ([N, L/16] int32 words, [N] int32 lengths) -> (hash int64
+    [N, L], keep bool [N, L]); the same contract as the plain version, bit
+    for bit."""
+    _check_ck(c, k)
+    N, nw = packed.shape
+    L = nw * 16
+    if packed.device.type == "cpu":
+        return seed_packed_plain(packed, lengths, c=c, k=k)
+    dev = packed.device
+    _cuda.require(packed, "packed", torch.int32, 2, dev)
+    _cuda.require(lengths, "lengths", torch.int32, 1, dev)
+    if lengths.shape[0] != N:
+        raise ValueError(f"lengths {tuple(lengths.shape)} for {N} rows")
+    hash_ = torch.empty((N, L), dtype=torch.int64, device=dev)
+    keep = torch.empty((N, L), dtype=torch.bool, device=dev)
+    lib = _cuda.library("seed")
+    with torch.cuda.device(dev):
+        rc = lib.seed_launch(
+            _cuda.ptr(packed), _cuda.ptr(lengths), ctypes.c_int64(N),
+            ctypes.c_int(L), ctypes.c_int(k), ctypes.c_uint64(threshold(c)),
+            _cuda.ptr(hash_), _cuda.ptr(keep), _cuda.stream_ptr(packed))
+    _cuda.check(lib, rc, "seed_launch")
+    _cuda.count_launch("B7_seed")
+    return hash_, keep

@@ -25,3 +25,28 @@ def stage_timer(stage: str, bases: int = 0, items: int = 0):
         elif items and dt > 0:
             extra = f" ({items / dt:.1f} items/s)"
         log.debug("[timing] %s: %.3f s%s", stage, dt, extra)
+
+
+class PhaseAcc:
+    """Thread-safe per-phase busy-time accumulator for pipelined stages.
+
+    Used by the streaming ingest (at DEBUG) to attribute wall time across
+    the decode / parse / seed / fingerprint / fold threads: per-phase BUSY
+    seconds summed over threads, not wall time, so they show which stage is
+    the pipeline's critical path."""
+
+    def __init__(self):
+        import threading
+        self._t = {}
+        self._lock = threading.Lock()
+
+    def add(self, name: str, dt: float):
+        with self._lock:
+            self._t[name] = self._t.get(name, 0.0) + dt
+
+    def log_summary(self, label: str, wall: float):
+        with self._lock:
+            busy = dict(self._t)
+        parts = " ".join(f"{k}={v:.2f}" for k, v in sorted(busy.items()))
+        log.debug("[ingest] %s wall=%.2f s | busy: %s", label, wall, parts,
+                  extra={"ingest_busy": busy, "ingest_wall": wall})

@@ -3,8 +3,12 @@
 - ``python -m sylph_tpu_torch profile/query --device cpu`` (in-process,
   through cli.main) with the grange engine forced (GRANGE_MIN = 0) on the
   80-genome world of tests/test_grange.py::test_grange_cli_parity, sketched
-  by the JAX package's ``sketch`` (the port has none yet): TSVs
-  byte-identical to the JAX host engine, ``contain(tpu=False)``.
+  by the JAX package's ``sketch``: TSVs byte-identical to the JAX host
+  engine, ``contain(tpu=False)``.
+- The same on raw reads (``o157_reads.fastq.gz``; ``-1 k12_R1.fq -2
+  k12_R2.fq``) against a ``.syldb`` of ``test_files/`` genomes sketched by
+  the JAX package: the reads are seeded through the port's plain kernels
+  and streamed into the device view.
 - The device candidate mask: a superset of the host f64 mask, and equal to
   the JAX device mask except on rows whose ANI lies within _DEV_ANI_MARGIN
   of the floor (f32 pow/exp round differently in torch and XLA there).
@@ -32,6 +36,7 @@ from sylph_tpu.engine.runner import ContainOptions, contain
 from sylph_tpu.engine.sketch_cmd import SketchOptions, sketch
 from sylph_tpu_torch import cli
 from sylph_tpu_torch.engine import prefilter as tpf
+from sylph_tpu_torch.engine import runner
 from sylph_tpu_torch.engine.device_exec import DeviceContainment
 from sylph_tpu_torch.gpu.grange import resolve_device
 from tests.test_prefilter import _closest_adjusted_cases, _closest_naive_cases
@@ -87,11 +92,92 @@ def test_cli_tsv_byte_identical_to_jax(world, mode, monkeypatch):
 
 
 def test_cli_raw_reads_raise(world, monkeypatch):
+    """Raw reads are sketched now; raw GENOME inputs still raise."""
     monkeypatch.setattr(DeviceContainment, "GRANGE_MIN", 0)
-    with pytest.raises(NotImplementedError, match="sketching is not "
+    with pytest.raises(NotImplementedError, match="genome sketching is not "
                        "ported yet"):
         cli.main(["profile", str(world / "db.syldb"),
-                  str(world / "sample.fq"), "--device", "cpu"])
+                  str(world / "g000.fa.gz"), str(world / "sample.fq"),
+                  "--device", "cpu"])
+
+
+_TF = os.path.join(_REPO, "test_files")
+
+
+@pytest.fixture(scope="module")
+def ecoli_db(tmp_path_factory):
+    """A .syldb of the three test_files/ E. coli genomes at c=100, sketched
+    by the JAX package."""
+    d = tmp_path_factory.mktemp("ecoli_db")
+    sketch(SketchOptions(files=[], genomes=[
+        os.path.join(_TF, f"e.coli-{g}.fasta.gz")
+        for g in ("EC590", "K12", "o157")], db_out_name=str(d / "db"),
+        c=100, threads=3))
+    return str(d / "db.syldb")
+
+
+@pytest.mark.parametrize("mode", ["profile", "query"])
+@pytest.mark.parametrize("reads", ["single", "paired"])
+def test_cli_raw_reads_tsv_byte_identical_to_jax(ecoli_db, mode, reads,
+                                                 tmp_path, monkeypatch):
+    if reads == "single":
+        opts = dict(files=[ecoli_db,
+                           os.path.join(_TF, "o157_reads.fastq.gz")])
+        argv = [ecoli_db, os.path.join(_TF, "o157_reads.fastq.gz")]
+    else:
+        r1, r2 = (os.path.join(_TF, f"k12_R{i}.fq") for i in (1, 2))
+        opts = dict(files=[ecoli_db], first_pair=[r1], second_pair=[r2])
+        argv = [ecoli_db, "-1", r1, "-2", r2]
+    want = io.StringIO()
+    contain(ContainOptions(c=100, tpu=False, **opts),
+            pseudotax=(mode == "profile"), out=want)
+    monkeypatch.setattr(DeviceContainment, "GRANGE_MIN", 0)
+    out = tmp_path / "out.tsv"
+    assert cli.main([mode, *argv, "-c", "100", "--device", "cpu", "-o",
+                     str(out)]) == 0
+    got = out.read_text()
+    assert got == want.getvalue()
+    assert len(got.strip().splitlines()) > 1
+
+
+@pytest.mark.parametrize("mode", ["profile", "query"])
+def test_cli_raw_reads_device_view_tsv(world, mode, monkeypatch):
+    """Raw reads against the 80-genome world (enough genomes for the
+    device prefilter): the sample streams into a device view, the stream
+    sweep returns the candidate mask, and the TSV is byte-identical to the
+    JAX host engine's on the same raw reads."""
+    db, rf = str(world / "db.syldb"), str(world / "sample.fq")
+    want = io.StringIO()
+    contain(ContainOptions(files=[db, rf], c=25, tpu=False),
+            pseudotax=(mode == "profile"), out=want)
+    monkeypatch.setattr(DeviceContainment, "GRANGE_MIN", 0)
+    engines = []
+    make = runner._device_engine_for
+    monkeypatch.setattr(runner, "_device_engine_for", lambda *a, **kw:
+                        engines.append(make(*a, **kw)) or engines[-1])
+    out = world / f"port_raw_{mode}.tsv"
+    assert cli.main([mode, db, rf, "-c", "25", "--device", "cpu", "-o",
+                     str(out)]) == 0
+    assert out.read_text() == want.getvalue()
+    assert len(want.getvalue().strip().splitlines()) > 1
+    counters = engines[0]._grange.counters
+    assert counters["device_view_sorts"] >= 1
+    assert counters["mask_stream_masks"] == 1
+
+
+def test_cli_raw_reads_library_failure_raises(world, monkeypatch):
+    """A native library that will not load fails the run: the raw-read
+    sample is not skipped as an invalid file with exit 0."""
+    from sylph_tpu_torch.utils import cbuild
+
+    def broken_load(*args, **kwargs):
+        raise OSError("libfastxio.so: cannot open shared object file")
+
+    monkeypatch.setattr(DeviceContainment, "GRANGE_MIN", 0)
+    monkeypatch.setattr(cbuild, "load", broken_load)
+    with pytest.raises(OSError, match="cannot open shared object"):
+        cli.main(["profile", str(world / "db.syldb"), str(world / "sample.fq"),
+                  "-c", "25", "--device", "cpu"])
 
 
 def test_small_database_regimes_not_ported(world):
@@ -254,6 +340,49 @@ def test_importing_the_port_loads_no_jax():
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
                        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_c_sources_include_only_their_own_headers():
+    """The port's C and CUDA sources include system headers and their own
+    csrc/common.cuh, never a file of the JAX package."""
+    bad = []
+    for sub in ("native", "csrc"):
+        d = os.path.join(_REPO, "sylph_tpu_torch", sub)
+        for f in sorted(os.listdir(d)):
+            with open(os.path.join(d, f)) as fh:
+                for i, line in enumerate(fh, 1):
+                    s = line.strip()
+                    if s.startswith("#include") and '"' in s and \
+                            s != '#include "common.cuh"':
+                        bad.append(f"{sub}/{f}:{i}: {s}")
+    assert not bad, bad
+
+
+def test_port_loads_no_library_of_the_jax_package(tmp_path):
+    """Sketching through the port builds and loads its own copies of the
+    host C libraries, under build/native/, and maps nothing of the JAX
+    package's native/ directory."""
+    code = (
+        "import os, sys, torch\n"
+        "from sylph_tpu_torch.core.sketch_reads import sketch_pair_sequences\n"
+        "from sylph_tpu_torch.utils import cbuild\n"
+        "tf = os.path.join('test_files', '')\n"
+        "sk = sketch_pair_sequences(tf + 't1.fq', tf + 't2.fq', 5, 21,\n"
+        "                           device=torch.device('cpu'))\n"
+        "assert sk.kmers.size > 0\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "jax_native = os.path.join(os.getcwd(), 'native') + os.sep\n"
+        "ours = os.path.join(os.getcwd(), 'build', 'native') + os.sep\n"
+        "assert cbuild.BUILD_DIR + os.sep == ours, cbuild.BUILD_DIR\n"
+        "assert jax_native not in maps\n"
+        "assert maps.count(ours + 'libsketchcore-') and \\\n"
+        "    maps.count(ours + 'libfastxio-')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'sylph_tpu')]\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
+                       capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
 
 

@@ -9,13 +9,17 @@ without JAX; tests/conftest.py imports jax, hence on such a machine:
 Outputs must be bit-identical to the plain versions (integer kernels).
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
 
+from sylph_tpu_torch.engine import device_sketch as ds
 from sylph_tpu_torch.gpu import bucket_fill as bf
 from sylph_tpu_torch.gpu import bucket_join as bj
 from sylph_tpu_torch.gpu import grange as gr
+from sylph_tpu_torch.gpu import seeding as sd
 
 pytestmark = pytest.mark.cuda
 
@@ -132,6 +136,65 @@ def test_repack_matches_plain(cuda, n, row, cap, dens):
     _equal((got,), (bf.repack1_flat_plain(v, row=row, cap=cap),))
 
 
+@pytest.mark.parametrize("n,row,cap,dens", [
+    (2_200_000, 16384, 768, 0.034), (9_000, 1024, 256, 0.4),
+    (100, 1024, 256, 0.5)])
+def test_repack2_matches_plain(cuda, n, row, cap, dens):
+    """B8: the int64 instance of the repack template, with overflowing
+    windows at the 0.4 density."""
+    rng = np.random.default_rng(n)
+    v = rng.integers(0, 2**62, size=n, dtype=np.int64)
+    v[rng.random(n) > dens] = -1
+    v = torch.from_numpy(v)
+    got = bf.repack2_flat(v.to(cuda), row=row, cap=cap)
+    _equal((got,), (bf.repack2_flat_plain(v, row=row, cap=cap),))
+
+
+def _packed_batch(seed, N, L):
+    rng = np.random.default_rng(seed)
+    bases = rng.integers(0, 4, size=(N, L)).astype(np.uint8)
+    lens = rng.integers(0, L + 1, size=N).astype(np.int32)
+    lens[:3] = (L, 0, 20)
+    packed = torch.from_numpy(ds._pack16_rows(bases).view(np.int32))
+    return packed, torch.from_numpy(lens)
+
+
+@pytest.mark.parametrize("N,L,c,k", [
+    (256, 256, 200, 31), (300, 128, 5, 21), (64, 512, 7, 16),
+    (40, 256, 3, 9), (8, 128, 1, 31)])
+def test_seed_matches_plain(cuda, N, L, c, k):
+    """B7 against its plain version: every hash (windows past L read
+    zeros in both) and every keep, bit for bit."""
+    packed, lens = _packed_batch(N + k, N, L)
+    got = sd.seed_packed(packed.to(cuda), lens.to(cuda), c=c, k=k)
+    want = sd.seed_packed_plain(packed, lens, c=c, k=k)
+    _equal(got, want)
+    assert int(want[1].sum()) > 0
+
+
+def test_seed_concurrent_threads(cuda):
+    """B7 launched from two host threads at once (the ingest's worker
+    pool does so) gives each thread its own right answer."""
+    batches = [_packed_batch(s, 2048, 256) for s in (1, 2)]
+    want = [sd.seed_packed_plain(p, n, c=50, k=31) for p, n in batches]
+    got = [None, None]
+
+    def run(i):
+        p, n = batches[i]
+        for _ in range(20):
+            got[i] = sd.seed_packed(p.to(cuda), n.to(cuda), c=50, k=31)
+        torch.cuda.synchronize()
+
+    ths = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in ths)
+    for g, w in zip(got, want):
+        _equal(g, w)
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     k = torch.zeros(16, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
@@ -143,6 +206,13 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         bj.join_counts(ikey, torch.zeros((4, 8), dtype=torch.int64),
                        torch.zeros((4, 8), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        bf.repack2_flat(torch.zeros(16, dtype=torch.int32, device=cuda),
+                        row=1024, cap=256)
+    with pytest.raises(ValueError):
+        sd.seed_packed(torch.zeros((4, 8), dtype=torch.int64, device=cuda),
+                       torch.zeros(4, dtype=torch.int32, device=cuda),
+                       c=200, k=31)
 
 
 @pytest.mark.parametrize("nt,ci_cap", [(1, None), (4, None), (1, 8)])

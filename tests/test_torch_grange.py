@@ -239,3 +239,128 @@ def test_empty_sample():
     got = tgr.GRangeEngine(idx, device="cpu").hists(
         np.empty(0, np.uint64), np.empty(0, np.uint32))
     assert got.shape == (G, 64) and got.sum() == 0
+
+
+# ---- the streamed device-resident sample ------------------------------------
+
+def _stream_view(sk, sc, seed, device="cpu"):
+    """Push the sample in a shuffled (unsorted, first-insertion-like) order
+    in uneven segments; finalize into a DeviceSampleView."""
+    from sylph_tpu_torch.engine.device_sketch import DeviceSampleStream
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(sk.size)
+    uk, uc = sk[perm], sc[perm]
+    st = DeviceSampleStream(torch.device(device))
+    pos = 0
+    while pos < uk.size:
+        step = int(rng.integers(1, uk.size // 3 + 2))
+        st.push(uk[pos:pos + step])
+        pos += step
+    view = st.finalize(uk, uc)
+    assert view is not None and view.n == sk.size
+    return view
+
+
+def _view_world(weights):
+    """tests/test_grange.py's device-view worlds: dense weights
+    (test_grange_device_view_matches_host_upload, seed 7) or counts almost
+    all 1 (test_grange_device_view_sparse_weights, seed 12)."""
+    if weights == "dense":
+        return _world(7)
+    kmers, gids, sk, sc = _world(12)
+    sc = np.ones_like(sc)
+    rng = np.random.default_rng(4)
+    hot = rng.choice(sk.size, size=max(3, sk.size // 200), replace=False)
+    sc[hot] = rng.integers(2, 90, hot.size)
+    return kmers, gids, sk, sc
+
+
+def _mask_fns(gids, G):
+    from sylph_tpu.engine.prefilter import \
+        candidate_mask_device as j_mask_device
+    from sylph_tpu_torch.engine.prefilter import candidate_mask_device
+    n_kmers = np.bincount(gids, minlength=G).astype(np.int32)
+    kw = dict(k=31, min_ani=0.5, min_number_kmers=50.0,
+              min_count_correct=3.0, no_adj=False)
+    nk_t = torch.from_numpy(n_kmers)
+    return (lambda h: candidate_mask_device(h, nk_t, **kw),
+            lambda h: j_mask_device(h, jnp.asarray(n_kmers), **kw))
+
+
+@pytest.mark.parametrize("weights", ["dense", "sparse"])
+def test_device_view_matches_host_and_jax(weights):
+    """hists(device_view=) == hists(host table) == the JAX engine; the
+    one-fetch stream sweep gives the JAX stream sweep's mask and match
+    total, with and without a match-count hint."""
+    from sylph_tpu.engine.device_sketch import \
+        DeviceSampleStream as JStream
+    kmers, gids, sk, sc = _view_world(weights)
+    G = 50
+    ref_idx = jgr.build_grange_index(kmers, gids, G, chunk_slots=1 << 16,
+                                     target_mean=128)
+    eng = tgr.GRangeEngine(tgr.index_from_numpy(ref_idx._asdict()),
+                           device="cpu")
+    host = eng.hists(sk, sc)
+    np.testing.assert_array_equal(host, _oracle_hists(kmers, gids, G, sk,
+                                                      sc))
+    view = _stream_view(sk, sc, seed=3)
+    assert view.w_spec[0] == weights
+    got = eng.hists(None, None, device_view=view,
+                    table_fn=lambda: (sk, sc))
+    np.testing.assert_array_equal(got, host)
+    assert eng.counters["device_view_sorts"] == 1
+
+    mask_fn, j_mask_fn = _mask_fns(gids, G)
+    per_chunk = eng.hists(None, None, mask_fn=mask_fn, device_view=view,
+                          table_fn=lambda: (sk, sc))
+    assert per_chunk.ndim == 1 and per_chunk.dtype == bool
+    ms = eng.candidate_mask_stream(view, mask_fn)
+    assert ms is not None and eng.counters["mask_stream_masks"] == 1
+    np.testing.assert_array_equal(ms[0], per_chunk)
+
+    dev = jax.devices()[0]
+    jeng = jgr.GRangeEngine(ref_idx, devices=[dev])
+    jst = JStream(dev)
+    perm = np.random.default_rng(3).permutation(sk.size)
+    jst.push(sk[perm])
+    jview = jst.finalize(sk[perm], sc[perm])
+    jms = jeng.candidate_mask_stream(jview, j_mask_fn)
+    assert jms is not None
+    np.testing.assert_array_equal(ms[0], jms[0])
+    assert ms[1] == jms[1] > 0
+    grid = host - (eng._spill_hist(sk, sc) if ref_idx.spill_kmers.size
+                   else 0)
+    assert ms[1] == int(grid.sum())
+    hinted = eng.candidate_mask_stream(view, mask_fn,
+                                       n_matches=int(ms[1] * 1.5) + 8)
+    assert hinted is not None
+    np.testing.assert_array_equal(hinted[0], ms[0])
+    assert hinted[1] == ms[1]
+
+
+def test_mask_stream_probe_rejects_short_slices(monkeypatch):
+    """A slice length below the longest chunk slice fails the probe (the
+    caller then takes the per-chunk path) instead of cutting the slice."""
+    kmers, gids, sk, sc = _view_world("dense")
+    G = 50
+    idx = tgr.build_grange_index(kmers, gids, G, chunk_slots=1 << 16,
+                                 target_mean=128, device="cpu")
+    eng = tgr.GRangeEngine(idx, device="cpu")
+    view = _stream_view(sk, sc, seed=5)
+    mask_fn, _ = _mask_fns(gids, G)
+    assert eng.candidate_mask_stream(view, mask_fn) is not None
+    monkeypatch.setattr(tgr, "_quantize_p", lambda want, t=None: 1024)
+    skey, w = eng._sorted_device_sample(view)
+    _hist, probe, P = eng.hist_device_stream(skey, w)
+    assert P == 1024 < int(probe[1])
+    assert eng.candidate_mask_stream(view, mask_fn) is None
+    assert eng.counters["mask_stream_rejected"] == 1
+
+
+def test_sample_stream_out_of_sync_raises():
+    from sylph_tpu_torch.engine.device_sketch import DeviceSampleStream
+    st = DeviceSampleStream(torch.device("cpu"))
+    st.push(np.arange(5, dtype=np.uint64))
+    with pytest.raises(RuntimeError, match="out of sync"):
+        st.finalize(np.arange(6, dtype=np.uint64), np.ones(6, np.uint32))
+    assert not st._worker.is_alive()
