@@ -37,11 +37,29 @@ and drives the port's main path once, at database scale:
      the oracle; (g) its TSV rows equal reads_host.sylsp's, are non-empty
      and list only the 64 abundant genomes; (h) B1-B4, B7 and B8 launched
      on this run (B5 runs only when a chunk fails its conservation check).
-  4. Every kernel against its plain PyTorch version on the card, at the
-     main path's shapes (chunk 0 of the index and its real sample slices;
-     a [65,536, 256] batch of the real reads), bit for bit, plus overflow
-     cases that must be detected; each kernel's time, its plain version's,
-     its bound and, for B3 and B8, one library call's.
+  4. The small-database paths, each through the normal entry with the
+     launch counts set to 0 just before it: (i) ``sketch -g`` of 256
+     generated assemblies of 2-6 Mbp (1 to 200 contigs, repeated 1-3 kb
+     segments, N runs; about 1 Gbp) seeded on the card (B7), its .syldb
+     byte-identical to the native host seeder's, and ``sketch -i`` on 8
+     multi-contig genomes too; (j) ``profile small.syldb small.sylsp``
+     (about 5M index k-mers: the merge regime; 32 genomes planted at mean
+     multiplicities 1-6 plus 2M absent hashes): [G, 64] histograms equal
+     the oracle and the TSV lists exactly the planted genomes; (k)
+     ``query`` of 16 of the fasta files plus small.sylsp gives, for them,
+     the .syldb query's rows; (l) ``profile bucket.syldb bsample.sylsp``,
+     a generated 2,048 x 16,000-k-mer database (32,768,000 index k-mers:
+     the bucket regime, 8 chunks, the last partial) and a 5.3M-k-mer
+     sample with 128 planted genomes: histograms equal the oracle, the TSV
+     lists the planted genomes, every chunk's CI is at most 256; (m) B1
+     and B5' launch once per chunk, and B7 launched in (i).
+  5. Every kernel against its plain PyTorch version on the card, at the
+     main paths' shapes (chunk 0 of the GTDB-scale index and its real
+     sample slices; a [65,536, 256] batch of the real reads; chunk 0 of
+     the bucket regime with bsample's whole table; a [2048, 4096] batch of
+     genome rows), bit for bit, plus overflow cases that must be detected;
+     each kernel's time, its plain version's, its bound and, for B3 and
+     B8, one library call's.
 
 Any failed check raises and the script exits non-zero. The last lines are
 the kernels JSON, the card's name and power limit, and
@@ -83,6 +101,20 @@ INT32_OPS_PER_COMPARE = 3
 # min (3 to compare, 2 to select) and the threshold test (2); the k-mer
 # extraction is not counted
 INT32_OPS_PER_WINDOW = 45
+# the small-database phase: assemblies sketched with `sketch -g` (the merge
+# regime), and a generated database in the bucket regime
+ASSEMBLIES = 256               # genomes of 2-6 Mbp, about 1 Gbp in all
+ASM_BP = (2_000_000, 6_000_000)
+ASM_PLANTED = 32               # planted in small.sylsp
+ASM_ABSENT = 2_000_000         # hashes of small.sylsp absent from the db
+ASM_QUERY_FASTA = 16           # fasta inputs of the query check (k)
+ASM_INDIVIDUAL = 8             # multi-contig genomes sketched with -i
+BUCKET_GENOMES = 2048          # x BUCKET_KPG = 32,768,000 index k-mers:
+BUCKET_KPG = 16_000            # 8 chunks, the last 3,407,872 live
+BUCKET_SAMPLE_KMERS = 5_300_000
+BUCKET_PLANTED = 128
+BUCKET_CI_MAX = 256
+THREADS = 8                    # the card's host has 8 cores
 
 
 def _parse(argv):
@@ -112,12 +144,14 @@ def _smi() -> str:
 
 class _Stages(logging.Handler):
     """Collects the port's stage_timer records, (stage, seconds) in order,
-    and the ingest's per-phase busy seconds (its [ingest] record)."""
+    the ingest's per-phase busy seconds (its [ingest] record) and the
+    genome seeding's row counts (its [genome rows] records)."""
 
     def __init__(self):
         super().__init__(logging.DEBUG)
         self.items = []
         self.ingest = {}
+        self.genome_rows = [0, 0]       # rows, rows at the survivor cap
 
     def emit(self, rec):
         if isinstance(rec.msg, str) and rec.msg.startswith("[timing] %s:"):
@@ -125,9 +159,21 @@ class _Stages(logging.Handler):
         elif hasattr(rec, "ingest_busy"):
             self.ingest[str(rec.args[0])] = dict(
                 rec.ingest_busy, wall=rec.ingest_wall)
+        elif hasattr(rec, "genome_rows"):
+            self.genome_rows[0] += rec.genome_rows[0]
+            self.genome_rows[1] += rec.genome_rows[1]
 
     def total(self, prefix: str) -> float:
         return sum(s for n, s in self.items if n.startswith(prefix))
+
+    def split(self) -> dict:
+        """{stage: s} summed over the run, keys cut before " (", plus
+        genome_rows [rows, rows at the survivor cap]."""
+        out = {"genome_rows": self.genome_rows}
+        for name, sec in self.items:
+            key = name.split(" (")[0]
+            out[key] = out.get(key, 0.0) + sec
+        return out
 
     def per_sample(self) -> dict:
         """{sample path: {stage: s}}: every stage between two 'process
@@ -270,43 +316,59 @@ def _make_reads(a, work, kmers, taken):
 
 # ---- main path ---------------------------------------------------------
 
-def _main_path(db, reads, sketches, work):
+def _drive(argv):
+    """One CLI call in-process (cli.main, with --debug for the stage
+    records), every launch count set to 0 just before it and read just
+    after. Returns (launches, wall s, the call's _Stages, its device engine
+    or None)."""
     import torch
 
     from sylph_tpu_torch import cli
     from sylph_tpu_torch.engine import runner
     from sylph_tpu_torch.gpu import _cuda
 
-    engines, sketched = [], {}
-    make_engine, load_sample = runner._device_engine_for, runner._load_sample
+    engines = []
+    make = runner._device_engine_for
 
     def keep(*args, **kw):
-        engines.append(make_engine(*args, **kw))
+        engines.append(make(*args, **kw))
         return engines[-1]
+
+    runner._device_engine_for = keep
+    stages = _Stages()
+    logging.getLogger("sylph").addHandler(stages)
+    try:
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main([*argv, "--debug"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+    finally:
+        runner._device_engine_for = make
+        logging.getLogger("sylph").removeHandler(stages)
+    if rc != 0:
+        _fail(f"{argv[0]} exited with {rc}")
+    return launches, wall, stages, (engines[0] if engines else None)
+
+
+def _main_path(db, reads, sketches, work):
+    from sylph_tpu_torch.engine import runner
+
+    sketched = {}
+    load_sample = runner._load_sample
 
     def keep_sample(opts, rf, *args, **kw):
         sketched[rf[0]] = load_sample(opts, rf, *args, **kw)
         return sketched[rf[0]]
 
-    runner._device_engine_for = keep
     runner._load_sample = keep_sample
-    stages = _Stages()
-    logging.getLogger("sylph").addHandler(stages)
     tsv = os.path.join(work, "out.tsv")
-    argv = ["profile", db, reads, *sketches, "-o", tsv, "--debug"]
     try:
-        _cuda.reset_launches()
-        t0 = time.perf_counter()
-        rc = cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(_cuda.LAUNCHES)
+        launches, wall, stages, dc = _drive(
+            ["profile", db, reads, *sketches, "-o", tsv])
     finally:
-        runner._device_engine_for = make_engine
         runner._load_sample = load_sample
-        logging.getLogger("sylph").removeHandler(stages)
-    if rc != 0:
-        _fail(f"profile exited with {rc}")
     per = stages.per_sample()
     split = {
         "wall_s": wall,
@@ -327,7 +389,9 @@ def _main_path(db, reads, sketches, work):
         if launches[kname] <= 0:
             _fail(f"{kname} was not launched on the main path")
     print("check (h): B1-B4, B7 and B8 launched on the main path")
-    return engines[0], tsv, launches, sketched[reads], per, stages.ingest
+    return dc, tsv, launches, sketched[reads], per, stages.ingest
+
+
 def _oracle_hist(genomes, sk, sc, device):
     """[G, 64] exact histograms by searchsorted of every index k-mer into
     the sorted sample (tests/test_grange.py's oracle, on the card)."""
@@ -486,7 +550,362 @@ def _check_reads(dc, reads, card, host_path, abundant, tsv, per, ingest):
     torch.cuda.synchronize()
 
 
+# ---- the small-database phase -------------------------------------------
+
+def _make_assemblies(a, work):
+    """ASSEMBLIES fasta files of ASM_BP bases each, written as assemblies
+    are: 1 to 200 contigs, 80-column lines; every fourth genome carries
+    three copies of 1-3 kb segments (the duplicate drop), every sixteenth
+    N runs. Returns the paths."""
+    rng = np.random.default_rng(a.seed + 2)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    paths = []
+    for g in range(ASSEMBLIES):
+        n = int(rng.integers(ASM_BP[0], ASM_BP[1] + 1))
+        seq = acgt[rng.integers(0, 4, size=n, dtype=np.uint8)]
+        if g % 4 == 0:
+            for _ in range(3):
+                ln = int(rng.integers(1000, 3001))
+                src = seq[int(rng.integers(0, n - ln)):][:ln].copy()
+                for _ in range(2):
+                    at = int(rng.integers(0, n - ln))
+                    seq[at:at + ln] = src
+        if g % 16 == 3:
+            for _ in range(int(rng.integers(2, 6))):
+                ln = int(rng.integers(100, 5001))
+                at = int(rng.integers(0, n - ln))
+                seq[at:at + ln] = ord("N")
+        n_contigs = int(rng.integers(1, 201))
+        cuts = np.sort(rng.choice(n - 1, size=n_contigs - 1,
+                                  replace=False) + 1)
+        bounds = np.concatenate([[0], cuts, [n]])
+        path = os.path.join(work, f"asm{g:03d}.fna")
+        with open(path, "wb") as f:
+            for ci in range(n_contigs):
+                s = seq[bounds[ci]:bounds[ci + 1]]
+                full = s.size // 80 * 80
+                body = np.concatenate([s[:full].reshape(-1, 80), np.full(
+                    (full // 80, 1), ord("\n"), np.uint8)], axis=1)
+                f.write(b">asm%03d_contig%d\n" % (g, ci) + body.tobytes()
+                        + s[full:].tobytes()
+                        + (b"\n" if s.size > full else b""))
+        paths.append(path)
+    return paths
+
+
+def _native_syldb(paths, out, individual):
+    """The .syldb of ``paths`` sketched by the native C seeder on the host
+    (device None), the oracle of the card's sketch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sylph_tpu_torch.core.sketch_genomes import (
+        sketch_genome, sketch_genome_individual)
+    from sylph_tpu_torch.io import sylformat
+
+    def one(p):
+        if individual:
+            return sketch_genome_individual(C, K, p, 30, True, device=None)
+        return [sketch_genome(C, K, p, 30, True, device=None)]
+
+    with ThreadPoolExecutor(THREADS) as ex:
+        sketches = [g for gs in ex.map(one, paths) for g in gs]
+    sylformat.write_syldb(out, sketches)
+    return out
+
+
+def _same_file(a, b, what):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        if fa.read() != fb.read():
+            _fail(f"{what}: {a} differs from {b}")
+
+
+def _planted_sample(rng, genomes, picks, n_absent, name, work):
+    """A .sylsp holding the full sketches of ``picks`` at mean
+    multiplicities 1-6 and ``n_absent`` hashes absent from the database;
+    returns (path, planted names, the loaded sketch)."""
+    from sylph_tpu_torch.core.types import SequencesSketch
+    from sylph_tpu_torch.io import sylformat
+
+    thr = ((1 << 64) - 1) // C
+    parts, counts = [], []
+    for j, g in enumerate(np.sort(picks)):
+        km = genomes[g].genome_kmers
+        parts.append(km)
+        counts.append(1 + rng.poisson(j % 6, size=km.size))
+    parts.append(rng.integers(0, thr, size=n_absent, dtype=np.uint64))
+    counts.append(rng.integers(1, 4, size=n_absent))
+    sk = SequencesSketch(np.concatenate(parts),
+                         np.concatenate(counts).astype(np.uint32), C, K,
+                         f"{name}.fq", None, False, 150.0)
+    path = os.path.join(work, f"{name}.sylsp")
+    sylformat.write_sylsp(path, sk)
+    return (path, {genomes[g].file_name for g in picks},
+            sylformat.read_sylsp(path))
+
+
+def _check_small(dc, genomes, smp, planted, tsv, tag):
+    """hists == oracle, and the TSV lists exactly the planted genomes."""
+    sk, sc = smp.sorted_view()
+    got = dc.hists(smp)
+    want = _oracle_hist(genomes, sk, sc, dc.device)
+    if not np.array_equal(got, want):
+        _fail(f"({tag}) [G, 64] histogram differs from the oracle in "
+              f"{int((got != want).sum())} bins")
+    listed = {r.split("\t")[0] for r in _tsv_rows(tsv).get(
+        smp.file_name, [])}
+    if listed != planted:
+        _fail(f"({tag}) TSV lists {len(listed)} genomes, "
+              f"{len(listed & planted)} of {len(planted)} planted")
+    print(f"check ({tag}): hist == oracle ({int(want.sum())} hits), TSV "
+          f"lists exactly the {len(planted)} planted genomes")
+
+
+def _sketch_phase(a, work):
+    """(i): `sketch -g` of the assemblies on the card, byte-identical to
+    the native host path, plain and -i. Returns (the .syldb, the paths,
+    the sketch path's launches)."""
+    t0 = time.perf_counter()
+    paths = _make_assemblies(a, work)
+    gbp = sum(os.path.getsize(p) for p in paths) / 1e9
+    print(f"generate assemblies: {time.perf_counter() - t0:.3f} s "
+          f"({ASSEMBLIES} files, {gbp:.3f} GB of fasta)")
+    small = os.path.join(work, "small")
+    launches, wall, stages, _ = _drive(
+        ["sketch", "-g", *paths, "-o", small, "-t", str(THREADS)])
+    rows, at_cap = stages.genome_rows
+    t0 = time.perf_counter()
+    native = _native_syldb(paths, os.path.join(work, "native.syldb"), False)
+    host_s = time.perf_counter() - t0
+    _same_file(small + ".syldb", native, "(i) sketch -g")
+    n_contigs = []
+    for p in paths[:64]:
+        with open(p, "rb") as f:
+            n_contigs.append((f.read().count(b">"), p))
+    multi = [p for _, p in sorted(n_contigs)[-ASM_INDIVIDUAL:]]
+    indiv = os.path.join(work, "indiv")
+    ilaunch, iwall, _, _ = _drive(["sketch", "-i", "-g", *multi, "-o", indiv,
+                                   "-t", str(THREADS)])
+    _same_file(indiv + ".syldb", _native_syldb(
+        multi, os.path.join(work, "indiv_native.syldb"), True),
+        "(i) sketch -i")
+    if launches["B7_seed"] <= 0 or ilaunch["B7_seed"] <= 0:
+        _fail("(m) B7 was not launched by sketch -g")
+    print(f"check (i): sketch -g .syldb == native host .syldb "
+          f"({os.path.getsize(native)} bytes), -i on {len(multi)} "
+          "multi-contig genomes too")
+    split = dict(card_sketch_s=wall, native_sketch_s=host_s,
+                 individual_sketch_s=iwall, b7_launches=launches["B7_seed"],
+                 rows=rows, rows_at_cap=at_cap)
+    print("genome sketch: " + json.dumps(split))
+    return small + ".syldb", paths, launches
+
+
+def _merge_phase(a, work, db):
+    """(j) profile in the merge regime; (k) query of fasta inputs."""
+    from sylph_tpu_torch.io import sylformat
+
+    rng = np.random.default_rng(a.seed + 3)
+    genomes = sylformat.read_syldb(db)
+    picks = rng.choice(len(genomes), size=ASM_PLANTED, replace=False)
+    spath, planted, smp = _planted_sample(rng, genomes, picks, ASM_ABSENT,
+                                          "small", work)
+    tsv = os.path.join(work, "small.tsv")
+    launches, wall, stages, dc = _drive(["profile", db, spath, "-o", tsv])
+    if dc._grange is not None or dc._use_buckets:
+        _fail("(j) small.syldb did not run in the merge regime")
+    _check_small(dc, genomes, smp, planted, tsv, "j")
+    print("merge profile: " + json.dumps(dict(
+        wall_s=wall, index_kmers=int(dc.offsets[-1]),
+        index_slots=int(dc.index.keys.size), **stages.split())))
+    # (k): 8 planted and 8 other genomes as fasta inputs
+    others = np.setdiff1d(np.arange(len(genomes)), picks)
+    sel = np.concatenate([picks[:ASM_QUERY_FASTA // 2],
+                          rng.choice(others, size=ASM_QUERY_FASTA // 2,
+                                     replace=False)])
+    names = {genomes[g].file_name for g in sel}
+    qa, qb = (os.path.join(work, f"q{x}.tsv") for x in "ab")
+    _drive(["query", db, spath, "-o", qa])
+    qlaunch, qwall, _, _ = _drive(
+        ["query", *[genomes[g].file_name for g in sel], spath, "-o", qb,
+         "-t", str(THREADS)])
+    ra = sorted(r for r in _tsv_rows(qa).get(smp.file_name, [])
+                if r.split("\t")[0] in names)
+    rb = sorted(_tsv_rows(qb).get(smp.file_name, []))
+    if not rb or ra != rb or qlaunch["B7_seed"] <= 0:
+        _fail(f"(k) fasta query: {len(rb)} rows vs {len(ra)} .syldb rows "
+              f"(B7 {qlaunch['B7_seed']} launches)")
+    print(f"check (k): query of {len(sel)} fasta genomes == the .syldb "
+          f"query's rows for them ({len(rb)} rows; {qwall:.3f} s)")
+    return launches
+
+
+def _bucket_phase(a, work):
+    """(l) and (m): profile against a generated database in the bucket
+    regime. Returns (engine, the loaded sample, launches)."""
+    from sylph_tpu_torch.core.types import GenomeSketch
+    from sylph_tpu_torch.io import sylformat
+
+    rng = np.random.default_rng(a.seed + 4)
+    thr = ((1 << 64) - 1) // C
+    kmers = rng.integers(0, thr, size=BUCKET_GENOMES * BUCKET_KPG,
+                         dtype=np.uint64)
+    empty = np.empty(0, np.uint64)
+    genomes = [GenomeSketch(kmers[i * BUCKET_KPG:(i + 1) * BUCKET_KPG],
+                            empty, f"b{i:05d}.fa", f"contig{i:05d}", C, K,
+                            BUCKET_KPG * C, 30)
+               for i in range(BUCKET_GENOMES)]
+    db = os.path.join(work, "bucket.syldb")
+    sylformat.write_syldb(db, genomes)
+    picks = rng.choice(BUCKET_GENOMES, size=BUCKET_PLANTED, replace=False)
+    spath, planted, smp = _planted_sample(
+        rng, genomes, picks, BUCKET_SAMPLE_KMERS - BUCKET_PLANTED *
+        BUCKET_KPG, "bsample", work)
+    tsv = os.path.join(work, "bucket.tsv")
+    launches, wall, stages, dc = _drive(["profile", db, spath, "-o", tsv])
+    n_chunks = len(dc._bchunks)
+    cis = [int(ch.key.shape[1]) for ch in dc._bchunks]
+    if not dc._use_buckets or dc._grange is not None or n_chunks != 8:
+        _fail(f"(l) bucket.syldb ran with {n_chunks} bucketed chunks")
+    if max(cis) > BUCKET_CI_MAX:
+        _fail(f"(l) chunk CI {cis} above {BUCKET_CI_MAX}")
+    _check_small(dc, genomes, smp, planted, tsv, "l")
+    if launches["B1_fill"] != n_chunks or \
+            launches["B5p_bucket_join"] != n_chunks:
+        _fail(f"(m) B1 {launches['B1_fill']} and B5' "
+              f"{launches['B5p_bucket_join']} launches, not one per chunk "
+              f"({n_chunks})")
+    print(f"check (l): {n_chunks} chunks, CI {cis}, last chunk "
+          f"{dc._bchunks[-1].m} live k-mers")
+    _bucket_vs_merge(dc, smp)
+    print(f"check (m): B1 and B5' launched once per chunk ({n_chunks})")
+    print("bucket profile: " + json.dumps(dict(wall_s=wall,
+                                               **stages.split())))
+    return dc, smp, launches
+
+
+def _bucket_vs_merge(dc, smp):
+    """The bucket regime's [M] counts against the merge join's on the same
+    index and table (they must be equal), and both timed on the card: does
+    the bucket layout pay on the H100 at this size?"""
+    import torch
+
+    from sylph_tpu_torch.gpu.containment import merge_join_counts
+
+    n = int(smp.kmers.size)
+    skey, sw = dc.upload_table(smp)
+    idx = torch.from_numpy(dc.index.keys).to(dc.device)
+    got = dc.device_counts(skey, sw, n)
+    if not torch.equal(got, merge_join_counts(idx, skey, sw)):
+        _fail("(l) bucket-regime counts differ from the merge join's")
+    split = dict(
+        bucket_join_ms=_cuda_ms(lambda: dc.device_counts(skey, sw, n), 5),
+        merge_join_ms=_cuda_ms(lambda: merge_join_counts(idx, skey, sw), 5))
+    print("check (l): bucket counts == merge-join counts on the same index; "
+          + json.dumps(split))
+
+
+def _small_db_kernels(dc, smp, paths, launches, sk_launches, record):
+    """B5' and B1 at chunk 0 of the bucket regime with bsample's table; B7
+    on a [2048, 4096] batch of genome rows."""
+    import torch
+
+    from sylph_tpu_torch.engine import device_sketch as ds
+    from sylph_tpu_torch.gpu import bucket_fill as bf
+    from sylph_tpu_torch.gpu import bucket_join as bj
+    from sylph_tpu_torch.gpu import seeding as sd
+    from sylph_tpu_torch.io.fastx import parse_fastx
+
+    ch = dc._bchunks[0]
+    n = int(smp.kmers.size)
+    skey, sw = dc.upload_table(smp)
+    B, CI = ch.key.shape
+    CS = bj.sample_cs(n, B)
+    fkw = dict(width=ch.width, B=B, CS=CS)
+    got = bf.bucket_fill(skey, sw, 0, **fkw)
+    err = _same("B1_fill (whole range)", got,
+                bj._sample_to_buckets(skey, sw, base=0, **fkw))
+    record("B1_fill (whole range)", "fill.cu",
+           "sylph_tpu/tpu/bucket_fill.py:278", err,
+           _cuda_ms(lambda: bf.bucket_fill(skey, sw, 0, **fkw), 20),
+           _cuda_ms(lambda: bj._sample_to_buckets(skey, sw, base=0, **fkw),
+                    3),
+           _live_entries(sw) * 12 + B * CS * 12, 0,
+           n_launches=launches["B1_fill"])
+    dk, dw = got
+    ikey = ch.key
+    got = bj.bucket_counts(ikey, dk, dw)
+    err = _same("B5p_bucket_join", (got,),
+                (bj.join_counts_plain(ikey, dk, dw),))
+    live = int((dw > 0).sum())
+    print(f"B5' at chunk 0: [{B}, {CI}] x {CS} lanes, {live} of {B * CS} "
+          f"lanes live ({1 - live / (B * CS):.3f} pad share)")
+    record("B5p_bucket_join", "join.cu", "sylph_tpu/tpu/bucket_join.py:377",
+           err, _cuda_ms(lambda: bj.bucket_counts(ikey, dk, dw), 20),
+           _cuda_ms(lambda: bj.join_counts_plain(ikey, dk, dw), 2),
+           B * CI * 8 + B * CS * 12 + B * CI * 4,
+           _live_compares(ikey, dw) * INT32_OPS_PER_COMPARE,
+           n_launches=launches["B5p_bucket_join"])
+
+    # B7 on the first 2048 genome rows of the assemblies, in order
+    parts = []
+    for p in paths:
+        px = parse_fastx(p)
+        cid, off, rlen = ds._genome_rows(px, K)
+        padded = np.concatenate([px.codes, np.zeros(ds._GBLOCK, np.uint8)])
+        parts.append(ds._gather_rows(padded, px.starts[cid] + off, rlen,
+                                     ds._GBLOCK))
+        if sum(b.shape[0] for b, _ in parts) >= ds._GROWS:
+            break
+    bases = np.concatenate([b for b, _ in parts])[:ds._GROWS]
+    blens = np.concatenate([n_ for _, n_ in parts])[:ds._GROWS]
+    packed, lens = ds._upload_batch(bases, blens, dc.device)
+    N, L = bases.shape
+    got = sd.seed_packed(packed, lens, c=C, k=K)
+    err = _same("B7_seed (genome rows)", got,
+                sd.seed_packed_plain(packed, lens, c=C, k=K))
+    record("B7_seed (genome rows)", "seed.cu",
+           "sylph_tpu/tpu/pallas_seeding.py:152", err,
+           _cuda_ms(lambda: sd.seed_packed(packed, lens, c=C, k=K), 20),
+           _cuda_ms(lambda: sd.seed_packed_plain(packed, lens, c=C, k=K), 3),
+           N * L // 4 + N * 4 + N * L * 9,
+           _live_windows(lens, K) * INT32_OPS_PER_WINDOW,
+           n_launches=sk_launches["B7_seed"])
+
+
 # ---- kernels against their plain versions --------------------------------
+#
+# A bound counts the work this run's data needs, not the padded shapes: the
+# live sample entries a fill reads, the compares of live index slots with
+# the live lanes they meet, the windows of each row's real length. Bytes
+# count every input grid read once and every output written once.
+
+def _live_entries(w) -> int:
+    """Entries of a sample table or slice with a nonzero weight."""
+    return int((w > 0).sum())
+
+
+def _live_compares(ikey, dw, nt: int = 1, tile: int = 0) -> int:
+    """Equality tests a compare kernel needs: per index row, its live slots
+    times the live lanes they are compared with (tiled layout: column tile
+    t against lane group t, the overflow columns against every lane)."""
+    import torch
+    il = (ikey != -1).to(torch.int64)
+    ll = (dw > 0).to(torch.int64)
+    if nt <= 1:
+        return int((il.sum(1) * ll.sum(1)).sum())
+    cs = ll.shape[1] // nt
+    n = (il[:, nt * tile:].sum(1) * ll.sum(1)).sum()
+    for t in range(nt):
+        n += (il[:, t * tile:(t + 1) * tile].sum(1)
+              * ll[:, t * cs:(t + 1) * cs].sum(1)).sum()
+    return int(n)
+
+
+def _live_windows(lens, k: int) -> int:
+    """k-mer windows in rows of these lengths."""
+    import torch
+    return int(torch.clamp(lens.to(torch.int64) - (k - 1), min=0).sum())
+
 
 def _cuda_ms(fn, reps):
     import torch
@@ -544,16 +963,19 @@ def _kernels(dc, loaded, launches, reads):
     rows = []
 
     def record(name, src, replaces, err, ms, plain_ms, nbytes, ops,
-               library_ms=None):
+               library_ms=None, n_launches=None):
         """One kernels-JSON row; the bound is the larger of the bytes the
         call must move over the HBM rate and its int32 operations over the
-        INT32 issue rate."""
+        INT32 issue rate. Launches are the GTDB-scale path's unless given
+        (another path's count)."""
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = ops / H100_INT32_OPS_PER_S * 1e3
         rows.append(dict(
             name=name, route="cuda", source=f"sylph_tpu_torch/csrc/{src}",
-            replaces=replaces, launches=launches[name], max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            replaces=replaces,
+            launches=launches[name] if n_launches is None else n_launches,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=library_ms))
         print(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
@@ -570,7 +992,7 @@ def _kernels(dc, loaded, launches, reads):
            _cuda_ms(lambda: bf.bucket_fill(pk, pw, base, **fkw), 50),
            _cuda_ms(lambda: bj._sample_to_buckets(pk, pw, base=base, **fkw),
                     5),
-           P * 12 + NC * CS * 12, 0)
+           _live_entries(pw) * 12 + NC * CS * 12, 0)
     dk = got[0].view(B, nt * CS)
     dw = got[1].view(B, nt * CS)
     LW = nt * CS
@@ -581,7 +1003,6 @@ def _kernels(dc, loaded, launches, reads):
     got = bj.join_codes_compact(ikey, gidg, dk, dw, CAPR=capr, **jkw)
     want = bj.join_codes_compact_plain(ikey, gidg, dk, dw, CAPR=capr, **jkw)
     err = _same("B2_join_codes_compact", got, want)
-    compares = B * (nt * tile * CS + (CI - nt * tile) * LW)
     record("B2_join_codes_compact", "join.cu",
            "sylph_tpu/tpu/bucket_join.py:290", err,
            _cuda_ms(lambda: bj.join_codes_compact(ikey, gidg, dk, dw,
@@ -589,7 +1010,7 @@ def _kernels(dc, loaded, launches, reads):
            _cuda_ms(lambda: bj.join_codes_compact_plain(
                ikey, gidg, dk, dw, CAPR=capr, **jkw), 2),
            B * CI * 12 + B * LW * 12 + B // TB * capr * CI * 4,
-           compares * INT32_OPS_PER_COMPARE)
+           _live_compares(ikey, dw, nt, tile) * INT32_OPS_PER_COMPARE)
 
     # B3 repack: the first pass over chunk 0's column-major code stream
     stream = got[0].t().contiguous().view(-1)
@@ -622,8 +1043,7 @@ def _kernels(dc, loaded, launches, reads):
            _cuda_ms(lambda: bj.join_codes_plain(ikey, gidg, ddk, ddw,
                                                 **jkw), 2),
            B * CI * 16 + B * dLW * 12,
-           B * (nt * tile * dCS + (CI - nt * tile) * dLW)
-           * INT32_OPS_PER_COMPARE)
+           _live_compares(ikey, ddw, nt, tile) * INT32_OPS_PER_COMPARE)
 
     # B5 count grid, as the lossless redo runs it: flat cells at 4x CS
     fk, fw = bf.bucket_fill(pk, pw, base, width=g.width, B=B, CS=4 * CS)
@@ -634,7 +1054,7 @@ def _kernels(dc, loaded, launches, reads):
            err, _cuda_ms(lambda: bj.join_counts(ikey, fk, fw), 10),
            _cuda_ms(lambda: bj.join_counts_plain(ikey, fk, fw), 1),
            B * CI * 12 + B * 4 * CS * 12,
-           B * CI * 4 * CS * INT32_OPS_PER_COMPARE)
+           _live_compares(ikey, fw) * INT32_OPS_PER_COMPARE)
 
     # overflow 1: cells one lane deep drop entries; the engine's weight
     # conservation scalar must see it
@@ -665,7 +1085,7 @@ def _kernels(dc, loaded, launches, reads):
     print(f"overflow checks: CS=1 fill lost weight {w_lost}; CAPR={capr} "
           f"kept {n_comp} of {int(got[1])} live codes")
     _seed_kernels(dc.device, reads, record)
-    return rows
+    return rows, record
 
 
 def _seed_kernels(device, reads, record):
@@ -698,7 +1118,7 @@ def _seed_kernels(device, reads, record):
                    _cuda_ms(lambda: sd.seed_packed_plain(packed, lens, c=c,
                                                          k=k), 3),
                    N * L // 4 + N * 4 + N * L * 9,
-                   N * L * INT32_OPS_PER_WINDOW)
+                   _live_windows(lens, k) * INT32_OPS_PER_WINDOW)
 
     # B8: the batch's first condense_stream pass, as the main path runs it
     rows_ = ds._seed_rows(packed, lens, C, K, L)
@@ -757,7 +1177,7 @@ def main(argv=None) -> int:
     if reduced:
         print("reduced: " + json.dumps(reduced))
 
-    # generated data (about 7 GB), removed at the end
+    # generated data (about 9 GB), removed at the end
     work = os.path.abspath(os.path.join("build", "chip_smoke"))
     os.makedirs(work, exist_ok=True)
     try:
@@ -779,7 +1199,12 @@ def main(argv=None) -> int:
               f"{g.n_heavy} heavy runs")
         loaded = _check_outputs(dc, samples, tsv)
         _check_reads(dc, reads, card, host_path, abundant, tsv, per, ingest)
-        rows = _kernels(dc, loaded, launches, reads)
+        small_db, asm_paths, sk_launches = _sketch_phase(a, work)
+        _merge_phase(a, work, small_db)
+        bdc, bsmp, b_launches = _bucket_phase(a, work)
+        rows, record = _kernels(dc, loaded, launches, reads)
+        _small_db_kernels(bdc, bsmp, asm_paths, b_launches, sk_launches,
+                          record)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": rows}))

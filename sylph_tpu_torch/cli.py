@@ -4,9 +4,11 @@ query}``.
 The flags are sylph_tpu's (sylph src/cmdline.rs), less ``--tpu``,
 ``--serve``, ``--profile-trace`` and the multi-host flags, plus ``--device
 {cuda,cpu}`` (default cuda: seeding and containment run on the GPU unless
-the CPU is asked for). ``sketch`` takes reads (``-r``, ``-1/-2``, fastq
-files) and writes ``.sylsp`` samples; ``profile``/``query`` take a
-``.syldb`` database and ``.sylsp`` samples or raw reads.
+the CPU is asked for). ``sketch`` takes genomes (``-g``, fasta files,
+``--gl``) into one ``.syldb`` and reads (``-r``, ``-1/-2``, fastq files)
+into ``.sylsp`` samples; ``profile``/``query`` take ``.syldb`` databases or
+genome fasta files, and ``.sylsp`` samples or raw reads. The read list
+files ``--rl``, ``--l1`` and ``--l2`` are not ported.
 """
 
 import argparse
@@ -34,13 +36,20 @@ def _device_flag(p, what: str):
 
 def _add_sketch(sub):
     p = sub.add_parser(
-        "sketch", help="Sketch reads into samples: each sample.fq -> "
-        "sample.fq.sylsp (genome sketching is not ported yet).")
-    p.add_argument("files", nargs="*", help="fastq files; gzip optional")
+        "sketch", help="Sketch genomes into a database (*.syldb) and reads "
+        "into samples: each sample.fq -> sample.fq.sylsp.")
+    p.add_argument("files", nargs="*", help="fasta/fastq files; gzip "
+                   "optional. fasta = genomes, fastq = reads")
+    p.add_argument("-o", "--out-name-db", dest="db_out_name",
+                   default="database")
     p.add_argument("-d", "--sample-output-directory",
                    dest="sample_output_dir", default="./")
+    p.add_argument("-i", "--individual-records", dest="individual",
+                   action="store_true")
     p.add_argument("-r", "--reads", nargs="+", default=[])
     p.add_argument("-g", "--genomes", nargs="+", default=[])
+    p.add_argument("-l", "--list", dest="list_sequence", default=None)
+    p.add_argument("--gl", dest="list_genomes", default=None)
     p.add_argument("-1", "--first-pairs", dest="first_pair", nargs="+",
                    default=[])
     p.add_argument("-2", "--second-pairs", dest="second_pair", nargs="+",
@@ -51,11 +60,16 @@ def _add_sketch(sub):
     p.add_argument("-k", type=int, default=31)
     p.add_argument("-c", type=int, default=200)
     p.add_argument("-t", dest="threads", type=int, default=3)
+    p.add_argument("--ram-barrier", dest="max_ram", type=int, default=None)
     p.add_argument("--no-dedup", dest="no_dedup", action="store_true")
+    p.add_argument("--disable-profiling", dest="no_pseudotax",
+                   action="store_true")
+    p.add_argument("--min-spacing", dest="min_spacing_kmer", type=int,
+                   default=30)
     p.add_argument("--fpr", type=float, default=0.0001)
     p.add_argument("--trace", action="store_true")
     p.add_argument("--debug", action="store_true")
-    _device_flag(p, "read seeding")
+    _device_flag(p, "seeding")
     return p
 
 
@@ -104,7 +118,7 @@ def _add_contain(sub, name, helptext):
     p.add_argument("--no-adjust", dest="no_adj", action="store_true")
     p.add_argument("--mean-coverage", dest="mean_coverage",
                    action="store_true")
-    _device_flag(p, "read seeding and containment")
+    _device_flag(p, "seeding and containment")
     return p
 
 
@@ -150,11 +164,15 @@ def _contain_options(a) -> ContainOptions:
 
 def _sketch_options(a) -> SketchOptions:
     return SketchOptions(
-        files=a.files, sample_output_dir=a.sample_output_dir, reads=a.reads,
-        genomes=a.genomes, first_pair=a.first_pair,
+        files=a.files, db_out_name=a.db_out_name,
+        sample_output_dir=a.sample_output_dir, individual=a.individual,
+        reads=a.reads, genomes=a.genomes, list_sequence=a.list_sequence,
+        list_genomes=a.list_genomes, first_pair=a.first_pair,
         second_pair=a.second_pair, sample_names=a.sample_names,
         list_sample_names=a.list_sample_names, k=a.k, c=a.c,
-        threads=a.threads, no_dedup=a.no_dedup, fpr=a.fpr, device=a.device)
+        threads=a.threads, max_ram=a.max_ram, no_dedup=a.no_dedup,
+        no_pseudotax=a.no_pseudotax, min_spacing_kmer=a.min_spacing_kmer,
+        fpr=a.fpr, device=a.device)
 
 
 def main(argv=None) -> int:

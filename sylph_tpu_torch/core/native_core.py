@@ -1,5 +1,6 @@
 """ctypes bridge to native/sketchcore.c: the dedup fold, host seeding and
-dedup fingerprints of read sketching.
+dedup fingerprints of read sketching, and the host seeding and spacing scan
+of genome sketching.
 
 A trimmed copy of the JAX package's core/native_core.py. The library is
 built with ``cc`` at first use into build/native/ (utils/cbuild.py); the
@@ -67,6 +68,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         _U8P, _I64P, _I64P, ctypes.c_int64, ctypes.c_uint64, ctypes.c_int,
         ctypes.POINTER(_I64P), ctypes.POINTER(_U64P)]
     lib.sx_seed_concat.restype = ctypes.c_int64
+    lib.sx_seed_positions.argtypes = [
+        _U8P, _I64P, _I64P, ctypes.c_int64, ctypes.c_uint64, ctypes.c_int,
+        ctypes.POINTER(_I64P), ctypes.POINTER(_I64P),
+        ctypes.POINTER(_U64P)]
+    lib.sx_seed_positions.restype = ctypes.c_int64
+    lib.sk_spacing_scan.argtypes = [
+        _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, _U8P, _U8P]
+    lib.sk_spacing_scan.restype = None
     lib.sx_fp_single.argtypes = [
         _U8P, _I64P, _I64P, _I64P, ctypes.c_int64, _U64P, _U8P]
     lib.sx_fp_single.restype = None
@@ -314,6 +324,55 @@ def seed_concat_native(codes: np.ndarray, starts: np.ndarray,
         lib.sk_free(out_r)
         lib.sk_free(out_h)
     return rids, hashes
+
+
+def seed_positions_native(codes: np.ndarray, starts: np.ndarray,
+                          ends: np.ndarray, c: int, k: int):
+    """(contig_ids, end_positions, hashes) FracMinHash survivors of every
+    record, in (record, position) order: the host C seeder of genomes."""
+    lib = get_lib()
+    codes = np.ascontiguousarray(codes, np.uint8)
+    starts = np.ascontiguousarray(starts, np.int64)
+    ends = np.ascontiguousarray(ends, np.int64)
+    out_c = _I64P()
+    out_p = _I64P()
+    out_h = _U64P()
+    n = lib.sx_seed_positions(_p(codes, _U8P), _p(starts, _I64P),
+                              _p(ends, _I64P), len(starts), np.uint64(c),
+                              int(k), ctypes.byref(out_c),
+                              ctypes.byref(out_p), ctypes.byref(out_h))
+    if n < 0:
+        raise MemoryError("sx_seed_positions allocation failure")
+    try:
+        cids = np.ctypeslib.as_array(out_c, shape=(n,)).copy() if n \
+            else np.empty(0, np.int64)
+        pos = np.ctypeslib.as_array(out_p, shape=(n,)).copy() if n \
+            else np.empty(0, np.int64)
+        hashes = np.ctypeslib.as_array(out_h, shape=(n,)).copy() if n \
+            else np.empty(0, np.uint64)
+    finally:
+        lib.sk_free(out_c)
+        lib.sk_free(out_p)
+        lib.sk_free(out_h)
+    return cids, pos, hashes
+
+
+def spacing_scan_native(contigs: np.ndarray, positions: np.ndarray,
+                        min_spacing: int, per_contig: bool,
+                        pseudotax: bool):
+    """(kept, tracked) bool masks of the greedy genome spacing scan
+    (sylph src/sketch.rs:602-614; per_contig: :510-531)."""
+    lib = get_lib()
+    contigs = np.ascontiguousarray(contigs, np.int64)
+    positions = np.ascontiguousarray(positions, np.int64)
+    n = len(positions)
+    kept = np.zeros(n, np.uint8)
+    tracked = np.zeros(n, np.uint8)
+    lib.sk_spacing_scan(_p(contigs, _I64P), _p(positions, _I64P), n,
+                        min_spacing, 1 if per_contig else 0,
+                        1 if pseudotax else 0, _p(kept, _U8P),
+                        _p(tracked, _U8P))
+    return kept.astype(bool), tracked.astype(bool)
 
 
 def fp_single_native(codes: np.ndarray, starts: np.ndarray,

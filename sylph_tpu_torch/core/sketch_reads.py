@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..constants import MAX_DEDUP_COUNT
-from ..io.fastx import FastxParseError
+from ..io.fastx import FastxParseError, check_readable
 from .native_core import (fp_paired_native, fp_single_native,
                           make_streaming_fold, mean_fold_native,
                           seed_concat_native)
@@ -52,18 +52,6 @@ def _mean_fold(lengths: np.ndarray) -> float:
     if np.all(lengths == lengths[0]):
         return float(lengths[0])  # the fold is exact when all equal
     return mean_fold_native(lengths)
-
-
-def _check_readable(*paths: str) -> None:
-    """FastxParseError for an input that cannot be opened. Only this check
-    turns an OSError into a skipped input: one raised while the native
-    libraries or the kernels build, load or launch passes through."""
-    for p in paths:
-        try:
-            with open(p, "rb"):
-                pass
-        except OSError as e:
-            raise FastxParseError(f"{p}: {e}") from e
 
 
 def _seeder(c: int, k: int, device: Optional[torch.device]):
@@ -223,7 +211,7 @@ def sketch_sequences(read_file: str, c: int, k: int,
     sketch's ``kmers``): the device engine streams them to the card during
     the ingest."""
     try:
-        _check_readable(read_file)
+        check_readable(read_file)
         return _sketch_single_streaming(read_file, c, k, sample_name,
                                         no_dedup, device,
                                         on_segment=on_segment)
@@ -369,7 +357,7 @@ def sketch_pair_sequences(read_file1: str, read_file2: str, c: int, k: int,
     default, 1e-4) with the memory-bounded scalable bloom filter (the
     reference's ScalableCuckooFilter role)."""
     try:
-        _check_readable(read_file1, read_file2)
+        check_readable(read_file1, read_file2)
         return _sketch_pair_streaming(read_file1, read_file2, c, k,
                                       sample_name, no_dedup, fpr, device,
                                       on_segment=on_segment)

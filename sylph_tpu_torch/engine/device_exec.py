@@ -1,13 +1,22 @@
 """Device execution engine for query/profile containment (counterpart of
-sylph_tpu/engine/device_exec.py), grange regime only.
+sylph_tpu/engine/device_exec.py).
 
-At database scale (>= GRANGE_MIN index k-mers) the index lives on the
-device in the globally hash-sorted, range-chunked grange layout
-(gpu/grange.py). Per sample the device produces the per-genome coverage
-HISTOGRAM (or just the [G] candidate mask for the prefilter); exact
-per-k-mer counts for the few surviving genomes come from the host probe,
-so statistics stay in host f64 and TSVs stay byte-identical to the host
-engine.
+Three regimes by total index size, as in the JAX package:
+  - merge (< BUCKET_MIN): the index sits on the device whole; per sample,
+    gpu/containment.py::merge_join_counts gives exact per-k-mer counts
+    (one sort of the sample table), cached per sample.
+  - bucket (< GRANGE_MIN): each CHUNK-slot chunk is laid out dense per hash
+    bucket once (gpu/bucket_join.py::build_bucketed_index); per sample,
+    the B1 fill and the B5' compare give the same exact counts.
+  - grange (>= GRANGE_MIN, database scale): the globally hash-sorted,
+    range-chunked layout (gpu/grange.py). Per sample the device produces
+    the per-genome coverage HISTOGRAM (or just the [G] candidate mask);
+    exact per-k-mer counts for the few surviving genomes come from the
+    host probe.
+In the merge and bucket regimes the exact statistics read the cached device
+counts (genome_covs). Statistics stay in host f64 either way, so TSVs stay
+byte-identical to the host engine. Samples run one at a time; the JAX
+package's multi-device sharding and batched prefetch are not ported.
 """
 
 import logging
@@ -18,31 +27,80 @@ import numpy as np
 import torch
 
 from ..core.types import GenomeSketch, SequencesSketch
+from ..gpu.bucket_join import bucket_join_counts, build_bucketed_index
+from ..gpu.containment import build_host_index, merge_join_counts
 from ..gpu.grange import GRangeEngine, build_grange_index, resolve_device
+from ..gpu.keys import KEY_PAD
 from ..utils.timing import stage_timer
 
 log = logging.getLogger("sylph")
 
 _HISTS_CACHE_CAP = 16           # fallback histograms kept for the prefilter
+_COUNTS_CACHE_CAP = 16          # per-sample exact counts (merge, bucket)
 
 
 class DeviceContainment:
-    """Holds the grange index on the device; serves per-sample histograms
-    and candidate masks. ``device`` defaults to the GPU; asking for it
-    without one raises."""
+    """Holds the genome index on the device; serves per-sample counts,
+    histograms and candidate masks. ``device`` defaults to the GPU; asking
+    for it without one raises."""
 
+    CHUNK = 1 << 22       # index k-mers per device call (merge, bucket)
+    BUCKET_MIN = 1 << 24  # bucketed join at/above this total index size
     GRANGE_MIN = 1 << 26  # global-range layout at/above this total size
 
     def __init__(self, genome_sketches: List[GenomeSketch], device="cuda"):
         self.device = resolve_device(device)
         self._genome_sketches = genome_sketches
-        total = int(sum(g.genome_kmers.size for g in genome_sketches))
-        if total < self.GRANGE_MIN:
-            raise NotImplementedError(
-                f"index of {total} k-mers is below GRANGE_MIN "
-                f"({self.GRANGE_MIN}): the merge and bucket regimes of "
-                "smaller databases are not ported yet")
+        self._grange = None
+        self._cache = {}            # id(sample) -> (ref, [M] int32 counts)
         self._hists_cache = {}      # id(sample) -> (ref, [G, 64])
+        total = int(sum(g.genome_kmers.size for g in genome_sketches))
+        if total >= self.GRANGE_MIN:
+            self._init_grange(total)
+        else:
+            self._init_chunks(total)
+
+    def _init_chunks(self, total: int):
+        """The merge and bucket regimes: the index padded to m slots, the
+        next power of two (>= 1024) or the next whole number of CHUNKs,
+        whichever is smaller. Pads are key 0 with genome id G. The merge
+        regime uploads it whole; the bucket regime cuts it into CHUNK-slot
+        chunks, and since live k-mers are a prefix of the index, a chunk's
+        live k-mers are a prefix of the chunk."""
+        m = 1024
+        while m < total:
+            m *= 2
+        m = min(m, -(-total // self.CHUNK) * self.CHUNK) if total else m
+        gs = self._genome_sketches
+        self.index = build_host_index([g.genome_kmers for g in gs],
+                                      pad_multiple=m)
+        self.offsets = np.concatenate(
+            [[0], np.cumsum(self.index.n_kmers.astype(np.int64))])
+        m = self.index.keys.size
+        self._use_buckets = total >= self.BUCKET_MIN
+        self._index_dev, self._bchunks = None, []
+        regime = "bucket" if self._use_buckets else "merge"
+        with stage_timer(f"{regime} index build ({total} k-mers)"):
+            if self._use_buckets:
+                c_min = min(g.c for g in gs)
+                for s in range(0, m, self.CHUNK):
+                    n_live = min(max(total - s, 0), self.CHUNK)
+                    self._bchunks.append(build_bucketed_index(
+                        self.index.keys[s:s + n_live], c_min,
+                        n_slots=min(self.CHUNK, m - s)).to(self.device))
+            else:
+                self._index_dev = torch.from_numpy(self.index.keys).to(
+                    self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        log.debug("Device index (%s): %d genomes, %d k-mers in %d slots%s, "
+                  "on %s", regime, len(gs), total, m,
+                  "".join(f", {len(self._bchunks)} chunk(s) of "
+                          f"[{b.n_buckets}, {b.key.shape[1]}]"
+                          for b in self._bchunks[:1]), self.device)
+
+    def _init_grange(self, total: int):
+        genome_sketches = self._genome_sketches
         self._mask_matches_hint = None    # last stream sweep's matches
         with stage_timer(f"grange index build ({total} k-mers)"):
             kmers = np.concatenate(
@@ -78,18 +136,85 @@ class DeviceContainment:
         cap = int(0.7 * total) // max(chunk_bytes, 1)
         return None if cap >= n_chunks else max(1, cap)
 
+    def serves_streams(self) -> bool:
+        """True iff the grange regime: sample_streamer() returns a stream,
+        and the engine serves histograms only, so exact statistics probe
+        the host."""
+        return self._grange is not None
+
     def sample_streamer(self):
         """A DeviceSampleStream for a sample about to be sketched from raw
-        reads: the runner hands its push to the sketcher, so the sample's
-        k-mers upload while the file is still decoding."""
+        reads (grange regime; None otherwise): the runner hands its push to
+        the sketcher, so the sample's k-mers upload while the file is still
+        decoding."""
+        if not self.serves_streams():
+            return None
         from .device_sketch import DeviceSampleStream
         return DeviceSampleStream(self.device)
 
+    @staticmethod
+    def _pad_table(sample: SequencesSketch, t: int):
+        """The sample's hash-sorted (int64 keys with a KEY_PAD tail, int32
+        weights with a 0 tail) of length t."""
+        skmers, scounts = sample.sorted_view()
+        keys = np.full(t, KEY_PAD, np.int64)
+        wts = np.zeros(t, np.int32)
+        keys[:skmers.size] = skmers.astype(np.uint64, copy=False).view(
+            np.int64)
+        wts[:skmers.size] = scounts
+        return keys, wts
+
+    def _counts(self, sample: SequencesSketch) -> np.ndarray:
+        """[M] int32 exact sample counts of every index slot (merge and
+        bucket regimes), cached by sample identity with a strong ref so a
+        collected sample's id cannot alias the cache."""
+        hit = self._cache.get(id(sample))
+        if hit is not None and hit[0] is sample:
+            return hit[1]
+        n = int(sample.kmers.size)
+        skey, sw = self.upload_table(sample)
+        regime = "bucketed" if self._use_buckets else "merge"
+        with stage_timer(f"device containment join ({self.index.keys.size}"
+                         f" k-mers x {n} sample k-mers, {regime})"):
+            counts = self.device_counts(skey, sw, n).cpu().numpy()
+        while len(self._cache) >= _COUNTS_CACHE_CAP:
+            self._cache.pop(next(iter(self._cache)))
+        self._cache[id(sample)] = (sample, counts)
+        return counts
+
+    def upload_table(self, sample: SequencesSketch):
+        """The sample's table on the device, padded to a power of two (at
+        least 1024) as the JAX package pads it to bound compile shapes;
+        kept, so both engines see the same table."""
+        n = int(sample.kmers.size)
+        t = max(1024, 1 << int(np.ceil(np.log2(max(n, 1)))))
+        keys, wts = self._pad_table(sample, t)
+        return (torch.from_numpy(keys).to(self.device),
+                torch.from_numpy(wts).to(self.device))
+
+    def device_counts(self, skey: torch.Tensor, sw: torch.Tensor,
+                      n: int) -> torch.Tensor:
+        """[M] int32 counts on the device of a table from upload_table
+        with n live entries: the merge join of the whole index, or per
+        chunk the bucket join (B1 + B5')."""
+        if not self._use_buckets:
+            return merge_join_counts(self._index_dev, skey, sw)
+        out = torch.zeros(self.index.keys.size, dtype=torch.int32,
+                          device=self.device)
+        for i, ch in enumerate(self._bchunks):
+            base = i * self.CHUNK
+            out[base:base + ch.m] = bucket_join_counts(ch, skey, sw, n)
+        return out
+
     def candidates_mask(self, sample: SequencesSketch, mask_kwargs: dict):
-        """[G] bool candidate mask computed ON DEVICE, or None when the
-        index has heavy runs (their marker bins expand on the host) or a
-        degenerate spill list. Spill only ADDS counts, so genomes with any
-        spill hit are OR-ed into the candidate set (superset-safe)."""
+        """[G] bool candidate mask computed ON DEVICE (grange regime), or
+        None: outside grange, where the prefilter reads the histogram of
+        the exact counts; or when the index has heavy runs (their marker
+        bins expand on the host) or a degenerate spill list. Spill only
+        ADDS counts, so genomes with any spill hit are OR-ed into the
+        candidate set (superset-safe)."""
+        if self._grange is None:
+            return None
         g = self._grange.gidx
         if g.n_heavy or g.spill_kmers.size > (1 << 20):
             return None
@@ -141,7 +266,16 @@ class DeviceContainment:
         return out
 
     def hists(self, sample: SequencesSketch) -> np.ndarray:
-        """[G, 64] per-genome multiplicity histograms for the prefilter."""
+        """[G, 64] per-genome multiplicity histograms for the prefilter:
+        from the grange sweep, or a host bincount of the exact counts."""
+        if self._grange is None:
+            counts = self._counts(sample)
+            gids = self.index.genome_ids
+            G = int(self.index.n_genomes)
+            m = (counts > 0) & (gids < G)
+            seg = (gids[m].astype(np.int64) * 64
+                   + np.minimum(counts[m].astype(np.int64), 63))
+            return np.bincount(seg, minlength=G * 64).reshape(G, 64)
         hit = self._hists_cache.get(id(sample))
         if hit is not None and hit[0] is sample:
             return hit[1]
@@ -155,11 +289,28 @@ class DeviceContainment:
 
     def genome_covs(self, genome_index: int, sample: SequencesSketch,
                     winner=None, self_group: int = -1):
-        """Exact counts for one (candidate) genome come from the host
-        probe, the f64 parity oracle."""
-        from .containment import genome_covs as host_covs
-        return host_covs(self._genome_sketches[genome_index], sample,
-                         winner, self_group)
+        """(sorted contained multiplicities, kmers_lost) of one genome: the
+        engine.containment.genome_covs contract. Grange: the host probe,
+        the f64 parity oracle. Merge and bucket: the cached device counts;
+        the winner-table owner lookup stays on the host."""
+        if self._grange is not None:
+            from .containment import genome_covs as host_covs
+            return host_covs(self._genome_sketches[genome_index], sample,
+                             winner, self_group)
+        counts = self._counts(sample)
+        s, e = self.offsets[genome_index], self.offsets[genome_index + 1]
+        cts = counts[s:e]
+        hit = cts > 0
+        kmers_lost = 0
+        if winner is not None:
+            owners = winner.owner_groups(self.index.keys[s:e].view(
+                np.uint64))
+            owned = owners == self_group
+            kmers_lost = int(np.count_nonzero(hit & ~owned))
+            hit = hit & owned
+        covs = cts[hit].astype(np.uint32)
+        covs.sort()
+        return covs, kmers_lost
 
 
 def _warm_table(sample, overlap: bool):

@@ -10,6 +10,12 @@ unchanged, so sketches are identical to the host seeder's. Reads longer
 than the largest bucket are seeded on the host by design
 (kmer/seeding.py::fmh_seeds_np); results merge by read id, in file order.
 
+Genome seeding: every contig is cut into rows of _GBLOCK bases that overlap
+by k-1 (each window lies in exactly one row), B7 seeds them in batches, and
+each row's survivors come back with their window lanes, so the host gets
+(contig, end position, hash) in (contig, position) order for the duplicate
+drop and the spacing scan (core/sketch_genomes.py).
+
 Streamed sample: the dedup fold's first-insertion order is append-only,
 so the sample's distinct k-mers upload WHILE later blocks still decode
 (DeviceSampleStream); the grange engine then sorts and slices the sample
@@ -51,12 +57,14 @@ def _pack16_rows(codes_u8: np.ndarray) -> np.ndarray:
 
 
 def _compact_by_position(hash_: torch.Tensor, keep: torch.Tensor,
-                         cap: int) -> torch.Tensor:
+                         cap: int, want_lanes: bool = False):
     """Per-row compaction that PRESERVES position order: each row's first
     ``cap`` kept hashes, left-packed, pad -1 (the JAX package's sort by
     lane key). A per-row rank by cumsum and one scatter; dropped entries
-    all land in a spare column, which is cut off."""
-    R = hash_.shape[0]
+    all land in a spare column, which is cut off. With ``want_lanes`` the
+    survivors' window lanes come back too (pad -1), as genome sketching
+    needs positions for the spacing filter."""
+    R, W = hash_.shape
     kp = keep.to(torch.int64)
     rank = torch.cumsum(kp, dim=1) - kp
     sel = keep & (rank < cap)
@@ -64,7 +72,13 @@ def _compact_by_position(hash_: torch.Tensor, keep: torch.Tensor,
     out = torch.full((R, cap + 1), -1, dtype=torch.int64,
                      device=hash_.device)
     out.scatter_(1, col, torch.where(sel, hash_, -1))
-    return out[:, :cap]
+    if not want_lanes:
+        return out[:, :cap]
+    lane = torch.arange(W, device=hash_.device).expand(R, W)
+    lanes = torch.full((R, cap + 1), -1, dtype=torch.int64,
+                       device=hash_.device)
+    lanes.scatter_(1, col, torch.where(sel, lane, -1))
+    return out[:, :cap], lanes[:, :cap]
 
 
 def _seed_rows(packed: torch.Tensor, lens: torch.Tensor, c: int, k: int,
@@ -86,22 +100,29 @@ def _seed_packed(packed: torch.Tensor, lens: torch.Tensor, c: int, k: int,
     return condense_stream(rows.reshape(-1), exp), n_r
 
 
-def _build_batch(px: ParsedFastx, bucket_len: int, rids: np.ndarray):
-    """([pad_n, bucket_len] uint8 codes, [pad_n] int32 lengths) of the
-    reads ``rids``, zero-padded, rows padded to a multiple of 8: each row
-    is one contiguous copy of bucket_len codes from its read's start (a
-    row view of the block), then the codes past the read are zeroed."""
-    nb = rids.size
+def _gather_rows(padded: np.ndarray, starts: np.ndarray, lens: np.ndarray,
+                 L: int):
+    """([pad_n, L] uint8 codes, [pad_n] int32 lengths): row i is one
+    contiguous copy of L codes from ``starts[i]`` (a row view of
+    ``padded``, the codes followed by at least L zeros), with the codes
+    past ``lens[i]`` zeroed; rows padded to a multiple of 8."""
+    nb = starts.size
     pad_n = -(-nb // 8) * 8
-    lens = px.lengths[rids].astype(np.int64)
-    padded = np.concatenate([px.codes, np.zeros(bucket_len, np.uint8)])
-    rows = np.lib.stride_tricks.sliding_window_view(padded, bucket_len)
-    bases = np.zeros((pad_n, bucket_len), np.uint8)
-    bases[:nb] = rows[px.starts[rids]]
-    bases[:nb] *= np.arange(bucket_len)[None, :] < lens[:, None]
+    rows = np.lib.stride_tricks.sliding_window_view(padded, L)
+    bases = np.zeros((pad_n, L), np.uint8)
+    bases[:nb] = rows[starts]
+    bases[:nb] *= np.arange(L)[None, :] < lens[:, None]
     blens = np.zeros(pad_n, np.int32)
     blens[:nb] = lens
     return bases, blens
+
+
+def _build_batch(px: ParsedFastx, bucket_len: int, rids: np.ndarray):
+    """The batch of the reads ``rids`` at padded length bucket_len
+    (_gather_rows from each read's start)."""
+    padded = np.concatenate([px.codes, np.zeros(bucket_len, np.uint8)])
+    return _gather_rows(padded, px.starts[rids],
+                        px.lengths[rids].astype(np.int64), bucket_len)
 
 
 def _upload_batch(bases: np.ndarray, blens: np.ndarray, device):
@@ -171,6 +192,75 @@ def read_survivor_arrays(px: ParsedFastx, c: int, k: int,
     # within-read position order each batch row preserved
     order = np.argsort(rids_all, kind="stable")
     return rids_all[order], hashes_all[order]
+
+
+# ---------------------------------------------------------------------------
+# genome seeding
+
+_GBLOCK = 4096          # genome scan row length (bases)
+_GROWS = 2048           # rows per device call
+
+
+def _genome_rows(px: ParsedFastx, k: int):
+    """(contig, offset, length) of every scan row: contig i of n >= k
+    bases gives rows at offsets 0, step, 2*step, ... < n-k+1 with step =
+    _GBLOCK-(k-1), each min(_GBLOCK, n - offset) bases long."""
+    step = _GBLOCK - (k - 1)
+    n = px.lengths.astype(np.int64)
+    nrows = np.where(n >= k, (n - k) // step + 1, 0)
+    cid = np.repeat(np.arange(px.n_records, dtype=np.int64), nrows)
+    first = np.cumsum(nrows) - nrows
+    off = (np.arange(cid.size, dtype=np.int64)
+           - np.repeat(first, nrows)) * step
+    return cid, off, np.minimum(_GBLOCK, n[cid] - off)
+
+
+def genome_survivor_positions(px: ParsedFastx, c: int, k: int,
+                              device: torch.device):
+    """(contigs, end_positions, hashes) of FracMinHash survivors over all
+    contigs, in (contig, position) order, seeded on ``device``: the device
+    equivalent of fmh_seeds_positions per record (sylph
+    src/seeding.rs:182-208), feeding the duplicate/spacing filter.
+
+    Contigs scan in rows of _GBLOCK bases with a (k-1)-base halo, the
+    seam-overlap trick of the reference's AVX2 lanes
+    (src/avx2_seeding.rs:37-41) across rows. A batch of up to _GROWS rows
+    is built with one strided gather, seeded by B7, compacted per row in
+    position order (at most _row_cap survivors a row, as the JAX package
+    keeps them), and fetched once as (row, lane, hash) triples. A row
+    whose survivors reach the cap may have lost some: such rows are
+    warned about, and the row counts go to a debug record."""
+    W = _GBLOCK - k + 1
+    cap = _row_cap(W, c)
+    cid, off, rlen = _genome_rows(px, k)
+    padded = np.concatenate([px.codes, np.zeros(_GBLOCK, np.uint8)])
+    out_c, out_p, out_h = [], [], []
+    at_cap = 0
+    for s in range(0, cid.size, _GROWS):
+        bc, bo = cid[s:s + _GROWS], off[s:s + _GROWS]
+        packed, lens_d = _upload_batch(*_gather_rows(
+            padded, px.starts[bc] + bo, rlen[s:s + _GROWS], _GBLOCK), device)
+        hash_, keep = seed_packed(packed, lens_d, c=c, k=k)
+        hrows, lanes = _compact_by_position(hash_[:, :W], keep[:, :W], cap,
+                                            want_lanes=True)
+        row, col = (hrows != -1).nonzero(as_tuple=True)
+        got = torch.stack([row, lanes[row, col], hrows[row, col]]).cpu()
+        row, lane, h = got.numpy()
+        at_cap += int((np.bincount(row, minlength=bc.size) >= cap).sum())
+        out_c.append(bc[row])
+        # end position of the window, like fmh_seeds_positions
+        out_p.append(bo[row] + lane + (k - 1))
+        out_h.append(h.view(np.uint64))
+    if at_cap:
+        log.warning("%d genome rows reached the survivor cap of %d; "
+                    "survivors past it are dropped", at_cap, cap)
+    log.debug("[genome rows] %d rows, %d at the survivor cap", cid.size,
+              at_cap, extra={"genome_rows": (int(cid.size), at_cap)})
+    if not out_h:
+        e = np.empty(0, np.int64)
+        return e, e, np.empty(0, np.uint64)
+    return (np.concatenate(out_c), np.concatenate(out_p),
+            np.concatenate(out_h))
 
 
 # ---------------------------------------------------------------------------

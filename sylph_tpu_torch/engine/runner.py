@@ -4,11 +4,11 @@ Behavioral spec: sylph ``contain`` (src/contain.rs:115-351) and its helpers
 ``get_genome_sketches`` (:482-542), ``get_seq_sketch`` (:544-599),
 ``get_stats`` (:601-814). Containment always runs through the device engine
 (engine/device_exec.py) on ``opts.device``; statistics stay in host f64, so
-TSVs are byte-identical to sylph_tpu's host engine. Samples are .sylsp
-sketches or raw reads (fastq, -r, -1/-2), which are sketched on the same
-device while their k-mers stream to it; raw genome fasta inputs raise, since
-genome sketching is not ported yet. Samples run one after another: raw-read
-samples first, then sketches, as the JAX package orders them.
+TSVs are byte-identical to sylph_tpu's host engine. Genomes are .syldb
+databases or fasta files, sketched on the same device; samples are .sylsp
+sketches or raw reads (fastq, -r, -1/-2), sketched there too while, in the
+grange regime, their k-mers stream to it. Samples run one after another:
+raw-read samples first, then sketches, as the JAX package orders them.
 """
 
 import logging
@@ -22,8 +22,10 @@ from ..constants import (DEFAULT_C, DEFAULT_FPR, DEFAULT_K,
                          DEFAULT_MIN_NUMBER_KMERS, DEFAULT_MIN_SPACING,
                          DEFAULT_REDUNDANT_ANI, MIN_ANI_DEF, MIN_ANI_P_DEF,
                          QUERY_FILE_SUFFIX_VALID, SAMPLE_FILE_SUFFIX_VALID)
+from ..core.sketch_genomes import sketch_genome, sketch_genome_individual
 from ..core.sketch_reads import sketch_pair_sequences, sketch_sequences
 from ..core.types import AniResult, GenomeSketch, SequencesSketch
+from ..gpu.grange import resolve_device
 from ..io import sylformat
 from ..io.fastx import is_fasta, is_fastq
 from ..stats.contain_stats import StatParams, coverage_stats
@@ -35,8 +37,6 @@ from .profile import (assign_groups, derep_if_reassign_threshold,
                       get_kmer_identity, winner_table)
 
 log = logging.getLogger("sylph")
-
-_GENOME_SKETCHING_NOT_PORTED = "genome sketching is not ported yet"
 
 
 @dataclass
@@ -144,9 +144,8 @@ def get_stats(opts: ContainOptions, genome: GenomeSketch, genome_index: int,
 
 
 def _classify_files(opts: ContainOptions):
-    """src/contain.rs:149-223 -> (genome sketches, read sketches, raw read
-    inputs as [file] or [R1, R2]). Raw genome fasta inputs raise: genome
-    sketching is not ported yet."""
+    """src/contain.rs:149-223 -> (genome sketches, genome fasta files, read
+    sketches, raw read inputs as [file] or [R1, R2])."""
     all_files = list(opts.files)
     if opts.file_list:
         with open(opts.file_list) as f:
@@ -165,11 +164,6 @@ def _classify_files(opts: ContainOptions):
         else:
             log.warning("%s file extension is not a sketch or a fasta/fastq "
                         "file.", f)
-    if genome_files:
-        raise NotImplementedError(
-            f"{_GENOME_SKETCHING_NOT_PORTED}: sketch "
-            f"{', '.join(genome_files)} into a .syldb with `sylph sketch` "
-            "(sylph_tpu)")
     if len(opts.first_pair) != len(opts.second_pair):
         log.error("Different number of paired sequences (-1, -2) for "
                   "sketching. Exiting.")
@@ -178,11 +172,14 @@ def _classify_files(opts: ContainOptions):
         read_files.append([a, b])
     for r in opts.reads:
         read_files.append([r])
-    return genome_sketch_files, read_sketch_files, read_files
+    return genome_sketch_files, genome_files, read_sketch_files, read_files
 
 
-def _get_genome_sketches(genome_sketch_files) -> List[GenomeSketch]:
-    """src/contain.rs:482-542 for .syldb inputs."""
+def _get_genome_sketches(opts: ContainOptions, genome_sketch_files,
+                         genome_files, device) -> List[GenomeSketch]:
+    """src/contain.rs:482-542: .syldb inputs, then fasta inputs sketched
+    with seeding on ``device``."""
+    max_genome_c = None   # reference's 'lowest_genome_c' actually tracks max
     current_k = None
     sketches: List[GenomeSketch] = []
     for path in genome_sketch_files:
@@ -194,13 +191,33 @@ def _get_genome_sketches(genome_sketch_files) -> List[GenomeSketch]:
             raise SystemExit(1)
         if not vec:
             continue
+        c = vec[0].c
         k = vec[0].k
+        if max_genome_c is None or max_genome_c < c:
+            max_genome_c = c
         if current_k is None:
             current_k = k
         elif current_k != k:
             log.error("Query sketches have inconsistent -k. Exiting.")
             raise SystemExit(1)
         sketches.extend(vec)
+    for path in genome_files:
+        if max_genome_c is not None and max_genome_c < opts.c:
+            log.error("Value of -c for contain is %s -- greater than the "
+                      "smallest value of -c for a genome sketch %s. "
+                      "Continuing without sketching.", opts.c, max_genome_c)
+        elif current_k is not None and current_k != opts.k:
+            log.error("-k %s is not equal to -k %s found in sketches. "
+                      "Continuing without sketching.", opts.k, current_k)
+        elif opts.individual:
+            sketches.extend(sketch_genome_individual(
+                opts.c, opts.k, path, opts.min_spacing_kmer, opts.pseudotax,
+                device=device))
+        else:
+            g = sketch_genome(opts.c, opts.k, path, opts.min_spacing_kmer,
+                              opts.pseudotax, device=device)
+            if g is not None:
+                sketches.append(g)
     return sketches
 
 
@@ -309,6 +326,11 @@ def process_sample(opts: ContainOptions, sample: SequencesSketch,
         candidate_iter = ((int(i), genome_sketches[int(i)])
                           for i in candidates)
 
+    # the grange engine serves histograms only, so its exact statistics
+    # probe the host; the merge and bucket regimes read their cached
+    # device counts (device_engine.genome_covs)
+    host_probe = device_engine is None or device_engine.serves_streams()
+
     def _batchable(genomes):
         # cap the concat: an unfiltered 100k-genome query would
         # materialize the whole database's k-mers
@@ -319,7 +341,10 @@ def process_sample(opts: ContainOptions, sample: SequencesSketch,
         """Order-preserving map over per-genome get_stats calls, threaded
         like the reference's nested genome par_iter
         (src/contain.rs:284-292) when the pool is worth it."""
-        if n_items < 8 or opts.threads <= 1 or opts.log_reassignments:
+        if n_items < 8 or opts.threads <= 1 or opts.log_reassignments \
+                or not host_probe:
+            # the device counts are filled on first use: one thread, so
+            # first calls cannot run duplicate joins
             return [fn(j) for j in range(n_items)]
         from concurrent.futures import ThreadPoolExecutor
         with ThreadPoolExecutor(max_workers=min(opts.threads, 8)) as ex:
@@ -329,7 +354,7 @@ def process_sample(opts: ContainOptions, sample: SequencesSketch,
     results = []
     with stage_timer("pass-1 exact stats"):
         batch = None
-        if _batchable([g for _, g in candidate_list]):
+        if host_probe and _batchable([g for _, g in candidate_list]):
             batch = genome_covs_batch([g for _, g in candidate_list],
                                       sample)
 
@@ -355,7 +380,8 @@ def process_sample(opts: ContainOptions, sample: SequencesSketch,
         results2 = []
         with stage_timer("pass-2 reassigned stats"):
             batch2 = None
-            if _batchable([r.genome_sketch for r in results]):
+            if host_probe and _batchable([r.genome_sketch
+                                          for r in results]):
                 batch2 = genome_covs_batch(
                     [r.genome_sketch for r in results], sample,
                     winner, list(groups))
@@ -412,8 +438,9 @@ def contain(opts: ContainOptions, pseudotax: bool,
     if pseudotax:
         opts.pseudotax = True
     log.info("Obtaining sketches...")
-    genome_sketch_files, read_sketch_files, read_files = _classify_files(opts)
-    if not genome_sketch_files:
+    (genome_sketch_files, genome_files, read_sketch_files,
+     read_files) = _classify_files(opts)
+    if not genome_sketch_files and not genome_files:
         log.error("No genome files found; see sylph query/profile -h for "
                   "help. Exiting")
         raise SystemExit(1)
@@ -422,8 +449,10 @@ def contain(opts: ContainOptions, pseudotax: bool,
                   "help. Exiting")
         raise SystemExit(1)
 
+    device = resolve_device(opts.device)
     with stage_timer("load database"):
-        genome_sketches = _get_genome_sketches(genome_sketch_files)
+        genome_sketches = _get_genome_sketches(opts, genome_sketch_files,
+                                               genome_files, device)
     log.info("Finished obtaining genome sketches.")
     if not genome_sketches:
         log.error("No genome sketches found; see sylph query/profile -h for "
@@ -435,7 +464,7 @@ def contain(opts: ContainOptions, pseudotax: bool,
                   "--disable-profiling option. Exiting")
         raise SystemExit(1)
 
-    device_engine = _device_engine_for(genome_sketches, opts.device)
+    device_engine = _device_engine_for(genome_sketches, device)
     log.info("Containment runs on %s.", device_engine.device)
 
     close_out = False

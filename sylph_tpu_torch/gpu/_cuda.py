@@ -29,8 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"B1_fill": 0, "B2_join_codes_compact": 0, "B3_repack": 0,
-            "B4_join_codes": 0, "B5_join_counts": 0, "B7_seed": 0,
-            "B8_repack2": 0}
+            "B4_join_codes": 0, "B5_join_counts": 0,
+            "B5p_bucket_join": 0, "B7_seed": 0, "B8_repack2": 0}
 BUILD_LOG = {}                 # source name -> nvcc/ptxas output
 BUILD_SECONDS = {}             # source name -> wall seconds of its nvcc
 

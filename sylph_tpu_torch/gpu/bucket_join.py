@@ -1,23 +1,27 @@
-"""Bucketed compare-join pieces of the grange engine (counterpart of
-sylph_tpu/tpu/bucket_join.py).
+"""Bucketed compare-join (counterpart of sylph_tpu/tpu/bucket_join.py).
 
-The sample slice of an index chunk is laid out dense per bucket (or, in
-the hash-tiled layout, per cell = bucket*nt + hash sub-range) and every
-index slot is compared against its bucket's sample lanes. Here live the
-plain fill (``_sample_to_buckets``, the plain version of kernel B1 in
-bucket_fill.py), the sample-capacity rules, and the compare kernel's three
-wrappers with their plain versions:
+The sample (or, in the grange engine, its slice of an index chunk) is laid
+out dense per bucket (or, in the hash-tiled layout, per cell = bucket*nt +
+hash sub-range) and every index slot is compared against its bucket's
+sample lanes. Here live the plain fill (``_sample_to_buckets``, the plain
+version of kernel B1 in bucket_fill.py), the sample-capacity rules, the
+compare kernel's wrappers with their plain versions:
 
   join_counts          B5  [B, CI] int32 weighted counts
   join_codes           B4  [B, CI] int32 codes gid*64 + min(count, 63)
   join_codes_compact   B2  the codes, each column top-packed to CAPR rows
                            per TB-row block, plus the live count
+  bucket_join_device   B5' the fill plus B5's compare at the whole-range
+                           layout of the bucket regime
 
-All three launch csrc/join.cu on a CUDA tensor and run the plain version
-only for a tensor on the CPU.
+which launch csrc/join.cu on a CUDA tensor and run the plain version only
+for a tensor on the CPU; and the bucket regime's layout
+(``build_bucketed_index``) and its per-chunk counts in chunk order
+(``bucket_join_counts``).
 """
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -213,10 +217,8 @@ def _launch_join(mode, ikey, gid, dk, dw, *, TB, nt, tile, G, CAPR, out,
     _cuda.check(lib, rc, "join_launch")
 
 
-def join_counts(ikey: torch.Tensor, dk: torch.Tensor, dw: torch.Tensor, *,
-                nt: int = 1, tile: int = 0) -> torch.Tensor:
-    """B5: [B, CI] int32 weighted equality counts of an index chunk
-    against its cell grids."""
+def _join_counts(ikey, dk, dw, nt, tile, kname):
+    """The count-grid launch shared by B5 and B5'."""
     if ikey.device.type == "cpu":
         return join_counts_plain(ikey, dk, dw, nt=nt, tile=tile)
     _check_join(ikey, None, dk, dw, nt, tile)
@@ -224,8 +226,15 @@ def join_counts(ikey: torch.Tensor, dk: torch.Tensor, dw: torch.Tensor, *,
     _launch_join(_MODE_COUNTS, ikey, None, dk, dw,
                  TB=block_rows(ikey.shape[0]), nt=nt, tile=tile, G=0,
                  CAPR=0, out=out, nlive_part=None)
-    _cuda.count_launch("B5_join_counts")
+    _cuda.count_launch(kname)
     return out
+
+
+def join_counts(ikey: torch.Tensor, dk: torch.Tensor, dw: torch.Tensor, *,
+                nt: int = 1, tile: int = 0) -> torch.Tensor:
+    """B5: [B, CI] int32 weighted equality counts of an index chunk
+    against its cell grids."""
+    return _join_counts(ikey, dk, dw, nt, tile, "B5_join_counts")
 
 
 def join_codes(ikey: torch.Tensor, gid: torch.Tensor, dk: torch.Tensor,
@@ -267,3 +276,88 @@ def join_codes_compact(ikey: torch.Tensor, gid: torch.Tensor,
                  G=G, CAPR=CAPR, out=out, nlive_part=part)
     _cuda.count_launch("B2_join_codes_compact")
     return out, part.sum(dtype=torch.int64)
+
+
+# ---- the whole-range bucket regime (B5') -----------------------------------
+
+class BucketedIndex(NamedTuple):
+    """One index chunk laid out dense per hash bucket, on the host or (after
+    ``to``) on a device."""
+    key: torch.Tensor     # [B, CI] int64, KEY_PAD-padded
+    src: torch.Tensor     # [m] int64 flat [B*CI] slot of each live k-mer,
+    #                       in chunk order
+    width: int            # hash_hi bucket width
+    n_buckets: int
+    m: int                # live k-mers bucketed
+
+    def to(self, device) -> "BucketedIndex":
+        return self._replace(key=self.key.to(device), src=self.src.to(device))
+
+
+def build_bucketed_index(keys: np.ndarray, c: int,
+                         n_slots: Optional[int] = None,
+                         target_mean: float = 64.0) -> BucketedIndex:
+    """Dense bucketing of a chunk's LIVE k-mers (int64 keys, any order).
+
+    The bucket count comes from the chunk's slot count ``n_slots``
+    (default: the k-mers given), B = next power of two of n_slots /
+    target_mean, as the JAX package takes it from its padded chunk, so
+    width and the sample capacity ``sample_cs(t, B)`` are the JAX
+    package's. The JAX package buckets its zero pads too and sends them all
+    to bucket 0, whose occupancy then sets CI for the whole chunk; here
+    pads are never bucketed, so CI is the exact maximum occupancy of the
+    live k-mers, rounded up to 128."""
+    m = int(keys.size)
+    n_slots = m if n_slots is None else int(n_slots)
+    thr_hi = int((((1 << 64) - 1) // max(c, 1)) >> 32)
+    b_want = max(1, int(n_slots / target_mean))
+    B = 1 << max(0, int(np.ceil(np.log2(b_want))))
+    width = thr_hi // B + 1
+    hi = (keys >> 32) & 0xFFFFFFFF
+    b = np.minimum(hi // width, B - 1)
+    counts = np.bincount(b, minlength=B)
+    ci = max(8, int(counts.max()) if m else 0)
+    CI = -(-ci // 128) * 128 if ci > 8 else 8
+    out_key = np.full((B, CI), KEY_PAD, np.int64)
+    order = np.argsort(b, kind="stable")
+    bs = b[order]
+    ranks = np.arange(m) - np.concatenate([[0], np.cumsum(counts)])[bs]
+    out_key[bs, ranks] = keys[order]
+    src = np.empty(m, np.int64)
+    src[order] = bs * CI + ranks
+    return BucketedIndex(torch.from_numpy(out_key), torch.from_numpy(src),
+                         width, B, m)
+
+
+def bucket_join_device(ikey: torch.Tensor, skey: torch.Tensor,
+                       sw: torch.Tensor, *, width: int, B: int, CS: int,
+                       base: int = 0) -> torch.Tensor:
+    """B5': [B, CI] per-slot sample multiplicities of a bucketed index
+    chunk (``ikey``) against a hash-sorted sample table (``skey`` int64
+    with a KEY_PAD tail, ``sw`` int32 weights).
+
+    On a CUDA tensor: B1's kernel fills the [B, CS] bucket grids and the
+    compare kernel counts (``bucket_counts``). On the CPU: the plain fill
+    and the plain compare."""
+    from .bucket_fill import bucket_fill
+    dk, dw = bucket_fill(skey, sw, base, width=width, B=B, CS=CS)
+    return bucket_counts(ikey, dk, dw)
+
+
+def bucket_counts(ikey: torch.Tensor, dk: torch.Tensor,
+                  dw: torch.Tensor) -> torch.Tensor:
+    """B5''s compare: [B, CI] int32 counts of a bucketed index chunk
+    against its filled [B, CS] bucket grids (B5's kernel at nt = 1, counted
+    as "B5p_bucket_join"); plain version ``join_counts_plain``."""
+    return _join_counts(ikey, dk, dw, 1, 0, "B5p_bucket_join")
+
+
+def bucket_join_counts(bidx: BucketedIndex, skey: torch.Tensor,
+                       sw: torch.Tensor, t_real: int) -> torch.Tensor:
+    """[m] int32 exact sample counts of a chunk's live k-mers, in chunk
+    order, on the device ``bidx`` lies on: B5' at CS = sample_cs(t_real, B)
+    (``t_real`` is the table's live entry count), then one gather."""
+    grid = bucket_join_device(bidx.key, skey, sw, width=bidx.width,
+                              B=bidx.n_buckets,
+                              CS=sample_cs(t_real, bidx.n_buckets))
+    return grid.view(-1)[bidx.src]

@@ -31,6 +31,18 @@ class FastxParseError(ValueError):
     pass
 
 
+def check_readable(*paths: str) -> None:
+    """FastxParseError for an input that cannot be opened. Only this check
+    turns an OSError into a skipped input: one raised while the native
+    libraries or the kernels build, load or launch passes through."""
+    for p in paths:
+        try:
+            with open(p, "rb"):
+                pass
+        except OSError as e:
+            raise FastxParseError(f"{p}: {e}") from e
+
+
 @dataclass
 class ParsedFastx:
     """All records of one file, flattened.
@@ -300,6 +312,24 @@ def stream_fastx(path: str, skip_names: bool = True,
     """
     for block in stream_blocks(path, target_bytes):
         yield parse_block(block, path, skip_names)
+
+
+def parse_fastx(path: str, skip_names: bool = False,
+                target_bytes: int = 64 << 20) -> ParsedFastx:
+    """All records of one file (genome sketching): the streamed blocks
+    parsed and joined, record names kept. Raises FastxParseError on
+    malformed or empty input, as the JAX package's whole-file parser does."""
+    parts = list(stream_fastx(path, skip_names, target_bytes))
+    if not parts:
+        raise FastxParseError(f"{path}: empty file")
+    if len(parts) == 1:
+        return parts[0]
+    offs = np.cumsum([0] + [p.codes.size for p in parts[:-1]])
+    return ParsedFastx(
+        np.concatenate([p.codes for p in parts]),
+        np.concatenate([p.starts + o for p, o in zip(parts, offs)]),
+        np.concatenate([p.ends + o for p, o in zip(parts, offs)]),
+        [n for p in parts for n in p.names])
 
 
 def _record_cut_fast_fastq(buf: bytes, s: int, e: int):

@@ -1,8 +1,8 @@
 /* Native sketch-construction core of sylph_tpu_torch: the host-side hot
- * loops of read sketching. A trimmed copy of the JAX package's
- * native/sketchcore.c (the genome spacing scan, genome seeding, the one-shot
- * fold and the radix sort are left out), built into build/native/ under its
- * own name (sylph_tpu_torch/core/native_core.py).
+ * loops of read and genome sketching. A trimmed copy of the JAX package's
+ * native/sketchcore.c (the one-shot fold and the radix sort are left out),
+ * built into build/native/ under its own name
+ * (sylph_tpu_torch/core/native_core.py).
  *
  * 1. sk_fold_* — the reference's per-k-mer counting + PCR-duplicate
  *    removal fold (sylph src/sketch.rs:690-731 dup_removal_lsh_full[_exact],
@@ -10,8 +10,10 @@
  *    map (FxHashMap equivalent) plus an exact (kmer, fingerprint) pair set
  *    or a scalable blocked-bloom pair filter; results in first-insertion
  *    order.
- * 2. sx_seed_concat — scalar/AVX FracMinHash seeding of concatenated reads.
- * 3. sk_mean_fold, sx_fp_single, sx_fp_paired — mean read length and the
+ * 2. sk_spacing_scan — the greedy genome spacing filter.
+ * 3. sx_seed_concat, sx_seed_positions — scalar/AVX FracMinHash seeding of
+ *    concatenated reads, and of genome contigs with window end positions.
+ * 4. sk_mean_fold, sx_fp_single, sx_fp_paired — mean read length and the
  *    dedup fingerprints.
  *
  * Plain C ABI for ctypes; buffers are malloc'd here, freed by sk_free.
@@ -755,6 +757,30 @@ int64_t sk_fold_finish(void *p, uint64_t **out_kmers, uint32_t **out_counts,
  * fpr: 0 => exact pair set; > 0 => scalable blocked-bloom bounded at that
  * total false-positive probability (reference src/sketch.rs:830-846).
  */
+
+/* ---------- 2. genome spacing scan ---------- */
+
+/* kept/tracked must be zero-initialized by the caller (numpy zeros).
+ * Mirrors sylph src/sketch.rs:602-614 (whole-genome) / :510-531
+ * (per_contig=1: no reset on contig change). */
+void sk_spacing_scan(const int64_t *contigs, const int64_t *positions,
+                     int64_t n, int64_t min_spacing, int per_contig,
+                     int pseudotax, uint8_t *kept, uint8_t *tracked) {
+    int64_t last_pos = 0, last_contig = 0;
+    for (int64_t i = 0; i < n; i++) {
+        int64_t pos = positions[i];
+        if (last_pos == 0
+            || (!per_contig && last_contig != contigs[i])
+            || pos - last_pos > min_spacing) {
+            kept[i] = 1;
+            last_contig = contigs[i];
+            last_pos = pos;
+        } else if (pseudotax) {
+            tracked[i] = 1;
+        }
+    }
+}
+
 /* ---------- 3. scalar FracMinHash seeding ----------
  *
  * The rolling canonical-k-mer loop over 2-bit codes (spec: sylph
@@ -1122,7 +1148,89 @@ int64_t sx_seed_concat(const uint8_t *codes, const int64_t *starts,
     return (int64_t)hv.n;
 }
 
-/* ---------- 4. mean read length fold ---------- */
+/* genome path: (contig_id, window END position, hash) per survivor */
+int64_t sx_seed_positions(const uint8_t *codes, const int64_t *starts,
+                          const int64_t *ends, int64_t n_rec,
+                          uint64_t c, int k,
+                          int64_t **out_cids, int64_t **out_pos,
+                          uint64_t **out_hashes) {
+    uint64_t thr = UINT64_MAX / c;
+    uint64_t mask = UINT64_MAX >> (64 - 2 * k);
+    uint64_t rev_mask = ~(3ULL << (2 * k - 2));
+    int rshift = 2 * (k - 1);
+    int64_t total = n_rec ? ends[n_rec - 1] - starts[0] : 0;
+    Vec cv, pv, hv;
+    size_t cap0 = (size_t)(total / (int64_t)c + 1024);
+    if (!vec_init(&cv, cap0, sizeof(int64_t))) return -1;
+    if (!vec_init(&pv, cap0, sizeof(int64_t))) { free(cv.p); return -1; }
+    if (!vec_init(&hv, cap0, sizeof(uint64_t))) {
+        free(cv.p); free(pv.p); return -1;
+    }
+    for (int64_t r = 0; r < n_rec; r++) {
+        int64_t s = starts[r], e = ends[r];
+        if (e - s < (int64_t)k) continue;
+        int64_t done_w = 0;              /* window ordinals emitted so far */
+        int64_t nwin = (e - s) - (int64_t)k + 1;
+#ifdef SX_HAVE_AVX2_BUILD
+        /* long contigs: 8 halo'd stripes of SEGWIN windows per oct call
+         * (each stripe re-reads its (k-1)-base halo, the same seam
+         * treatment as the device genome scan). Positions come back
+         * exact, so output order matches the scalar loop. */
+        if (sx_avx512_ok()) {
+            static __thread uint64_t hbuf[8][SX_LANE_CAP];
+            static __thread uint32_t pbuf[8][SX_LANE_CAP];
+            const int64_t SEGWIN = 4096;
+            /* stripe survivors are binomial(SEGWIN + k, 1/c): cap safe
+             * unless c is tiny or the data is adversarial; the kernel
+             * reports overflow and the stripe group redoes scalar */
+            if ((SEGWIN + (int64_t)k) / (int64_t)c + 64 < SX_LANE_CAP) {
+                while (nwin - done_w >= 8 * SEGWIN) {
+                    int64_t st[8], en[8], rid8[8], pb[8];
+                    for (int l = 0; l < 8; l++) {
+                        int64_t w0 = done_w + l * SEGWIN;
+                        st[l] = s + w0;
+                        en[l] = s + w0 + SEGWIN + (int64_t)k - 1;
+                        rid8[l] = r;
+                        pb[l] = w0;       /* pos = w0 + lane-local index */
+                    }
+                    size_t cn = cv.n, pn = pv.n, hn = hv.n;
+                    int rcq = sx_seed_oct_avx512(
+                        codes, st, en, rid8, c, k, thr, mask, rev_mask,
+                        rshift, &cv, &pv, &hv, hbuf, pbuf, pb);
+                    if (rcq < 0) {
+                        free(cv.p); free(pv.p); free(hv.p); return -1;
+                    }
+                    if (rcq == 0) {       /* lane overflow: scalar redo */
+                        cv.n = cn; pv.n = pn; hv.n = hn;
+                        if (!sx_seed_tail(codes, s + done_w, en[7], 0,
+                                          0, 0, thr, mask, rev_mask,
+                                          rshift, k, &cv, &pv, &hv, r,
+                                          done_w)) {
+                            free(cv.p); free(pv.p); free(hv.p);
+                            return -1;
+                        }
+                    }
+                    done_w += 8 * SEGWIN;
+                }
+            }
+        }
+#endif
+        /* scalar remainder (whole record when SIMD is unavailable) */
+        if (done_w < nwin) {
+            if (!sx_seed_tail(codes, s + done_w, e, 0, 0, 0, thr, mask,
+                              rev_mask, rshift, k, &cv, &pv, &hv, r,
+                              done_w)) {
+                free(cv.p); free(pv.p); free(hv.p); return -1;
+            }
+        }
+    }
+    *out_cids = (int64_t *)cv.p;
+    *out_pos = (int64_t *)pv.p;
+    *out_hashes = (uint64_t *)hv.p;
+    return (int64_t)hv.n;
+}
+
+/* ---------- 4. mean read length fold and fingerprints ---------- */
 
 /* The reference's sequential running mean (sylph src/sketch.rs:941-943):
  * mean += (len - mean) / counter. Bit-exact f64 op order. */

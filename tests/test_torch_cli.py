@@ -9,6 +9,8 @@
   k12_R2.fq``) against a ``.syldb`` of ``test_files/`` genomes sketched by
   the JAX package: the reads are seeded through the port's plain kernels
   and streamed into the device view.
+- Genome fasta inputs beside the database, and the merge regime with no
+  patch (tests/test_torch_small_db.py covers the small-database regimes).
 - The device candidate mask: a superset of the host f64 mask, and equal to
   the JAX device mask except on rows whose ANI lies within _DEV_ANI_MARGIN
   of the floor (f32 pow/exp round differently in torch and XLA there).
@@ -91,14 +93,21 @@ def test_cli_tsv_byte_identical_to_jax(world, mode, monkeypatch):
     assert len(got.strip().splitlines()) > 1
 
 
-def test_cli_raw_reads_raise(world, monkeypatch):
-    """Raw reads are sketched now; raw GENOME inputs still raise."""
-    monkeypatch.setattr(DeviceContainment, "GRANGE_MIN", 0)
-    with pytest.raises(NotImplementedError, match="genome sketching is not "
-                       "ported yet"):
-        cli.main(["profile", str(world / "db.syldb"),
-                  str(world / "g000.fa.gz"), str(world / "sample.fq"),
-                  "--device", "cpu"])
+def test_cli_raw_reads_raise(world, tmp_path):
+    """Raw inputs of both kinds are sketched now: ``profile db.syldb
+    g077.fa.gz sample.fq.sylsp sample.fq`` (a genome fasta beside the
+    database, a sketch and raw reads; merge regime) gives the JAX host
+    engine's TSV byte for byte."""
+    files = [str(world / f) for f in ("db.syldb", "g077.fa.gz",
+                                      "sample.fq.sylsp", "sample.fq")]
+    want = io.StringIO()
+    contain(ContainOptions(files=files, c=25, tpu=False), pseudotax=True,
+            out=want)
+    out = tmp_path / "out.tsv"
+    assert cli.main(["profile", *files, "-c", "25", "--device", "cpu", "-o",
+                     str(out)]) == 0
+    assert out.read_text() == want.getvalue()
+    assert "g077.fa.gz" in want.getvalue()
 
 
 _TF = os.path.join(_REPO, "test_files")
@@ -180,10 +189,19 @@ def test_cli_raw_reads_library_failure_raises(world, monkeypatch):
                   "-c", "25", "--device", "cpu"])
 
 
-def test_small_database_regimes_not_ported(world):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(["query", str(world / "db.syldb"),
-                  str(world / "sample.fq.sylsp"), "--device", "cpu"])
+def test_small_database_regimes_not_ported(world, tmp_path):
+    """The small-database regimes are ported: ``query`` of the 80-genome
+    world, with no GRANGE_MIN patch, runs in the merge regime and gives the
+    JAX host engine's TSV byte for byte."""
+    files = [str(world / "db.syldb"), str(world / "sample.fq.sylsp")]
+    want = io.StringIO()
+    contain(ContainOptions(files=files, tpu=False), pseudotax=False,
+            out=want)
+    out = tmp_path / "out.tsv"
+    assert cli.main(["query", *files, "--device", "cpu", "-o",
+                     str(out)]) == 0
+    assert out.read_text() == want.getvalue()
+    assert len(want.getvalue().strip().splitlines()) > 1
 
 
 def test_cuda_without_gpu_raises(world, monkeypatch):

@@ -232,3 +232,107 @@ def test_engine_on_card_matches_cpu(cuda, nt, ci_cap):
     got = gr.GRangeEngine(idx, device=cuda).hists(sk, sc)
     np.testing.assert_array_equal(got, want)
     assert want.sum() > 0
+
+
+# ---- the small-database regimes and genome seeding -------------------------
+
+def _bucket_world(seed, n_slots, mean, c=200):
+    """A bucketed chunk of n_slots - 100 live k-mers and a sorted sample
+    table of mean * B entries (up to a quarter of them index k-mers), -1
+    tail."""
+    rng = np.random.default_rng(seed)
+    thr = ((1 << 64) - 1) // c
+    idx = rng.integers(0, thr, size=n_slots - 100, dtype=np.uint64)
+    bidx = bj.build_bucketed_index(idx.view(np.int64), c, n_slots=n_slots)
+    t = mean * bidx.n_buckets
+    n_in = min(t // 4, idx.size)
+    smp = np.unique(np.concatenate([rng.choice(idx, size=n_in,
+                                               replace=False),
+                                    rng.integers(0, thr, size=t - n_in,
+                                                 dtype=np.uint64)]))
+    keys = np.concatenate([smp.view(np.int64), np.full(333, -1, np.int64)])
+    w = np.concatenate([rng.integers(1, 7, size=smp.size),
+                        np.zeros(333, np.int64)]).astype(np.int32)
+    return bidx, torch.from_numpy(keys), torch.from_numpy(w), smp.size
+
+
+@pytest.mark.parametrize("n_slots,mean,cs", [
+    (16384, 160, 256), (16384, 480, 640), (2048, 160, 256)])
+def test_bucket_join_matches_plain(cuda, n_slots, mean, cs):
+    """B5' (fill + compare) and its compare alone against the plain
+    versions at 256 and 640 lanes, and at B = 32 < 64 (TB = B)."""
+    bidx, keys, w, t = _bucket_world(n_slots + mean, n_slots, mean)
+    B = bidx.n_buckets
+    CS = bj.sample_cs(t, B)
+    assert CS == cs and bj.block_rows(B) == min(B, 64)
+    kw = dict(width=bidx.width, B=B, CS=CS)
+    ikey = bidx.key
+    want = bj.bucket_join_device(ikey, keys, w, **kw)
+    n0 = bj._cuda.LAUNCHES["B5p_bucket_join"]
+    got = bj.bucket_join_device(ikey.to(cuda), keys.to(cuda), w.to(cuda),
+                                **kw)
+    torch.cuda.synchronize()
+    assert bj._cuda.LAUNCHES["B5p_bucket_join"] == n0 + 1
+    _equal((got,), (want,))
+    assert int((want > 0).sum()) > B
+    dk, dw = bj._sample_to_buckets(keys, w, width=bidx.width, B=B, CS=CS)
+    _equal((bj.bucket_counts(ikey.to(cuda), dk.to(cuda), dw.to(cuda)),),
+           (bj.join_counts_plain(ikey, dk, dw),))
+
+
+def test_fill_whole_range_matches_plain(cuda):
+    """B1 at nt = 1, base 0, over a whole sample table: 4,096 buckets."""
+    bidx, keys, w, t = _bucket_world(9, 1 << 18, 150)
+    kw = dict(width=bidx.width, B=bidx.n_buckets,
+              CS=bj.sample_cs(t, bidx.n_buckets))
+    got = bf.bucket_fill(keys.to(cuda), w.to(cuda), 0, **kw)
+    _equal(got, bj._sample_to_buckets(keys, w, base=0, **kw))
+
+
+def test_seed_genome_rows_matches_plain(cuda):
+    """B7 at the genome row length, L = 4096, and the whole genome
+    seeding on the card against the native C seeder."""
+    from sylph_tpu_torch.core.native_core import seed_positions_native
+    from sylph_tpu_torch.io.fastx import ParsedFastx
+    packed, lens = _packed_batch(5, 96, 4096)
+    for c, k in ((200, 31), (25, 21)):
+        _equal(sd.seed_packed(packed.to(cuda), lens.to(cuda), c=c, k=k),
+               sd.seed_packed_plain(packed, lens, c=c, k=k))
+    rng = np.random.default_rng(8)
+    lens = np.array([20, 4096, 4097, 250_000, 31, 77_777])
+    codes = rng.integers(0, 4, size=int(lens.sum())).astype(np.uint8)
+    ends = np.cumsum(lens)
+    px = ParsedFastx(codes, ends - lens, ends)
+    for c, k in ((200, 31), (10, 31), (3, 15)):
+        got = ds.genome_survivor_positions(px, c, k, cuda)
+        want = seed_positions_native(codes, ends - lens, ends, c, k)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("regime", ["merge", "bucket"])
+def test_small_db_engine_on_card_matches_cpu(cuda, regime, monkeypatch):
+    from sylph_tpu_torch.core.types import GenomeSketch, SequencesSketch
+    from sylph_tpu_torch.engine.device_exec import DeviceContainment
+    monkeypatch.setattr(DeviceContainment, "CHUNK", 1 << 15)
+    if regime == "bucket":
+        monkeypatch.setattr(DeviceContainment, "BUCKET_MIN", 1000)
+    rng = np.random.default_rng(12)
+    c = 50
+    pool = rng.integers(0, ((1 << 64) - 1) // c, size=200_000,
+                        dtype=np.uint64)
+    gs = [GenomeSketch(rng.choice(pool, size=3000, replace=False), None,
+                       f"g{i}", f"c{i}", c, 31, 1, 30) for i in range(40)]
+    skm = rng.choice(pool, size=60_000, replace=False)
+    sk = SequencesSketch(skm, rng.integers(1, 9, size=skm.size).astype(
+        np.uint32), c, 31, "s", None, False, 150.0)
+    on_cpu = DeviceContainment(gs, device="cpu")
+    on_card = DeviceContainment(gs, device=cuda)
+    assert on_card._use_buckets == (regime == "bucket")
+    assert (len(on_card._bchunks) if regime == "bucket"
+            else on_card._index_dev.numel() // (1 << 15)) == 4
+    np.testing.assert_array_equal(on_card.hists(sk), on_cpu.hists(sk))
+    for gi in range(0, 40, 7):
+        a, b = on_card.genome_covs(gi, sk), on_cpu.genome_covs(gi, sk)
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1] == b[1]

@@ -268,10 +268,17 @@ def test_sketch_cli_writes_sylsp_identical_to_jax(tmp_path):
 
 
 def test_sketch_cli_genomes_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="genome sketching is not "
-                       "ported yet"):
-        cli.main(["sketch", "-g", os.path.join(TF, "e.coli-K12.fasta.gz"),
-                  "--device", "cpu"])
+    """Genome sketching is ported: ``sketch -g e.coli-K12.fasta.gz`` (the
+    genome seeded through the plain kernels) writes the JAX package's
+    .syldb byte for byte (tests/test_torch_genome_sketch.py has the
+    rest)."""
+    g = os.path.join(TF, "e.coli-K12.fasta.gz")
+    j_sketch_cmd(SketchOptions(files=[], genomes=[g],
+                               db_out_name=str(tmp_path / "j"), c=100))
+    assert cli.main(["sketch", "-g", g, "-o", str(tmp_path / "p"), "-c",
+                     "100", "--device", "cpu"]) == 0
+    want = (tmp_path / "j.syldb").read_bytes()
+    assert (tmp_path / "p.syldb").read_bytes() == want and len(want) > 1000
 
 
 # ---- failures --------------------------------------------------------------
