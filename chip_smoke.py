@@ -25,10 +25,12 @@ and drives the port's main path once, at database scale:
      seeder, the oracle of the card's sketch.
   3. The main path through the normal entry, ``python -m sylph_tpu_torch
      profile db.syldb reads.fastq.gz sample.sylsp deep.sylsp
-     reads_host.sylsp`` (in-process, through cli.main): the raw reads are
-     seeded on the card (B7, B8) while their k-mers stream to it, then every
-     sample is swept (B1-B4). Checks: (a) each sample's full [G, 64]
-     histogram equals an exact searchsorted oracle; (b) the device candidate
+     reads_host.sylsp`` (in-process, through cli.main), through the cohort
+     loop at its grange depth of 1 (each sample loads while the one before
+     it is processed): the raw reads are seeded on the card (B7, B8) while
+     their k-mers stream to it, then every sample is swept (B1-B4).
+     Checks: (a) each sample's full [G, 64] histogram equals an exact
+     searchsorted oracle; (b) the device candidate
      mask contains every genome the host f64 mask keeps; (c) the TSV lists
      exactly the planted genomes of sample and deep; (d) the card's sketch
      of reads.fastq.gz equals the host seeder's; (e) that sample went
@@ -37,6 +39,14 @@ and drives the port's main path once, at database scale:
      the oracle; (g) its TSV rows equal reads_host.sylsp's, are non-empty
      and list only the 64 abundant genomes; (h) B1-B4, B7 and B8 launched
      on this run (B5 runs only when a chunk fails its conservation check).
+     (n) The cohort call ``profile db.syldb sample.sylsp deep.sylsp
+     reads_host.sylsp`` at ``SYLPH_COHORT_DEPTH=3``: one batched sweep of
+     the three samples, B2b launched once per chunk, no per-sample sweep;
+     each batched histogram equals the oracle and each sample's TSV rows
+     equal its rows of the main call. The call reuses the main call's
+     device engine through the ``runner._device_engine_for`` hook, a
+     shortcut of this script (the CLI builds its engine per call), so the
+     grange index is not built twice.
   4. The small-database paths, each through the normal entry with the
      launch counts set to 0 just before it: (i) ``sketch -g`` of 256
      generated assemblies of 2-6 Mbp (1 to 200 contigs, repeated 1-3 kb
@@ -52,14 +62,20 @@ and drives the port's main path once, at database scale:
      the bucket regime, 8 chunks, the last partial) and a 5.3M-k-mer
      sample with 128 planted genomes: histograms equal the oracle, the TSV
      lists the planted genomes, every chunk's CI is at most 256; (m) B1
-     and B5' launch once per chunk, and B7 launched in (i).
+     and B5' launch once per chunk, and B7 launched in (i); (o) ``profile
+     small.syldb`` of small.sylsp and three more planted samples at the
+     default merge depth (8): one batched merge join whose counts equal
+     the per-sample joins', each sample's TSV listing exactly its planted
+     genomes.
   5. Every kernel against its plain PyTorch version on the card, at the
      main paths' shapes (chunk 0 of the GTDB-scale index and its real
      sample slices; a [65,536, 256] batch of the real reads; chunk 0 of
      the bucket regime with bsample's whole table; a [2048, 4096] batch of
-     genome rows), bit for bit, plus overflow cases that must be detected;
-     each kernel's time, its plain version's, its bound and, for B3 and
-     B8, one library call's.
+     genome rows; (p) chunk 0 against the three cohort samples' slices, S =
+     3, for B2b, B4b and B5b, and each at S = 1 against B2, B4 and B5),
+     bit for bit, plus overflow cases that must be detected; each kernel's
+     time, its plain version's, its bound and, for B3 and B8, one library
+     call's.
 
 Any failed check raises and the script exits non-zero. The last lines are
 the kernels JSON, the card's name and power limit, and
@@ -176,19 +192,23 @@ class _Stages(logging.Handler):
         return out
 
     def per_sample(self) -> dict:
-        """{sample path: {stage: s}}: every stage between two 'process
-        sample' records belongs to the second one's sample."""
-        out, cur = {}, {}
+        """{sample path: {stage: s}}: a sample's load/sketch record names
+        it (loads run on the cohort pool, beside another sample's
+        processing); every other stage between two 'process sample'
+        records belongs to the second one's sample."""
+        out, cur, loads = {}, {}, {}
         for name, s in self.items:
             if name.startswith("process sample "):
                 cur["process"] = s
                 out[name[len("process sample "):]] = cur
                 cur = {}
+            elif name.startswith("load/sketch sample "):
+                loads[name[len("load/sketch sample "):]] = s
             elif not name.startswith(("load database", "grange index")):
                 key = name.split(" (")[0]
-                if key.startswith("load/sketch sample"):
-                    key = "load/sketch"
                 cur[key] = cur.get(key, 0.0) + s
+        for path, s in loads.items():
+            out.setdefault(path, {})["load/sketch"] = s
         return out
 
 
@@ -353,22 +373,9 @@ def _drive(argv):
 
 
 def _main_path(db, reads, sketches, work):
-    from sylph_tpu_torch.engine import runner
-
-    sketched = {}
-    load_sample = runner._load_sample
-
-    def keep_sample(opts, rf, *args, **kw):
-        sketched[rf[0]] = load_sample(opts, rf, *args, **kw)
-        return sketched[rf[0]]
-
-    runner._load_sample = keep_sample
     tsv = os.path.join(work, "out.tsv")
-    try:
-        launches, wall, stages, dc = _drive(
-            ["profile", db, reads, *sketches, "-o", tsv])
-    finally:
-        runner._load_sample = load_sample
+    (launches, wall, stages, dc), sketched = _capture_samples(
+        lambda: _drive(["profile", db, reads, *sketches, "-o", tsv]))
     per = stages.per_sample()
     split = {
         "wall_s": wall,
@@ -442,7 +449,7 @@ def _check_outputs(dc, samples, tsv):
             _fail(f"{name}: device mask misses host candidates")
         print(f"check {name}: hist == oracle ({int(want.sum())} hits), "
               f"mask {int(dev.sum())} >= host {int(host.sum())}")
-        loaded[name] = (smp, sk, sc)
+        loaded[name] = (smp, sk, sc, want)
     rows = {}
     with open(tsv) as f:
         next(f)
@@ -485,7 +492,8 @@ def _tsv_rows(tsv):
 
 
 def _check_reads(dc, reads, card, host_path, abundant, tsv, per, ingest):
-    """Checks (d)-(g) of the raw-read sample, and its stage split."""
+    """Checks (d)-(g) of the raw-read sample, and its stage split. Returns
+    reads_host.sylsp's (sorted kmers, counts, oracle histogram)."""
     import torch
 
     from sylph_tpu_torch.io import sylformat
@@ -548,6 +556,100 @@ def _check_reads(dc, reads, card, host_path, abundant, tsv, per, ingest):
     print("mask phase per sample (pass-1 prefilter s): " + json.dumps(
         {k: v.get("pass-1 prefilter") for k, v in per.items()}))
     torch.cuda.synchronize()
+    return sk, sc, want
+
+
+def _capture_samples(fn):
+    """Run ``fn()`` with runner._load_sample hooked; returns (fn's result,
+    {read file: the loaded sample})."""
+    from sylph_tpu_torch.engine import runner
+
+    got = {}
+    load_sample = runner._load_sample
+
+    def keep_sample(opts, rf, *args, **kw):
+        got[rf[0]] = load_sample(opts, rf, *args, **kw)
+        return got[rf[0]]
+
+    runner._load_sample = keep_sample
+    try:
+        return fn(), got
+    finally:
+        runner._load_sample = load_sample
+
+
+def _cohort_split(wall, stages, batched):
+    """Wall and per-phase seconds of a cohort call, summed over its
+    samples: loads, the host tables of the prefetch (sorts, padding),
+    ``batched`` (the stage of its batched device work), the prefilter and
+    the two statistics passes."""
+    return dict(wall_s=wall, load_s=stages.total("load"),
+                tables_s=stages.total("sample tables"),
+                batched_s=stages.total(batched),
+                prefilter_s=stages.total("pass-1 prefilter"),
+                pass1_s=stages.total("pass-1 exact stats"),
+                pass2_s=stages.total("pass-2"))
+
+
+def _cohort_phase(dc, db, cohort, main_tsv, main_per):
+    """(n): ``profile db.syldb`` of the three .sylsp samples at
+    SYLPH_COHORT_DEPTH=3. The call reuses ``dc``, the main call's engine,
+    through the runner._device_engine_for hook (this script's shortcut: the
+    CLI builds an engine per call), so the 7.17e8-k-mer index is not built
+    again. ``cohort`` maps each sample's path to its oracle histogram.
+    Returns the call's launches."""
+    from sylph_tpu_torch.engine import runner
+
+    eng = dc._grange
+    n_chunks = len(eng.gidx.chunk_keys)
+    before = dict(eng.counters)
+    tsv = main_tsv + ".cohort"
+    make = runner._device_engine_for
+    runner._device_engine_for = lambda *a, **kw: dc
+    os.environ["SYLPH_COHORT_DEPTH"] = "3"
+    try:
+        (launches, wall, stages, _), samples = _capture_samples(
+            lambda: _drive(["profile", db, *cohort, "-o", tsv]))
+    finally:
+        runner._device_engine_for = make
+        del os.environ["SYLPH_COHORT_DEPTH"]
+    delta = {k: eng.counters[k] - before[k] for k in before}
+    n_b2b = launches["B2b_join_codes_compact_batched"]
+    if n_b2b != n_chunks or delta["batched_sweeps"] != 1 or any(
+            delta[k] for k in ("batched_rejected", "hists_sweeps",
+                               "mask_stream_masks", "mask_stream_rejected")):
+        _fail(f"(n) B2b launched {n_b2b} times for {n_chunks} chunks; "
+              f"sweeps {delta}")
+    main_rows, rows = _tsv_rows(main_tsv), _tsv_rows(tsv)
+    for path, want in cohort.items():
+        smp = samples[path]
+        got = dc._cached(dc._hists_cache, smp)
+        if got is None or not np.array_equal(got, want):
+            _fail(f"(n) {path}: batched histogram differs from the oracle")
+        name = smp.sample_name or smp.file_name
+        if not rows.get(name) or rows[name] != main_rows.get(name):
+            _fail(f"(n) {name}: {len(rows.get(name, []))} cohort rows vs "
+                  f"{len(main_rows.get(name, []))} in the main call")
+    print(f"check (n): one batched sweep of {len(cohort)} samples, B2b "
+          f"launched once per chunk ({n_b2b}), no per-sample sweep; "
+          "batched histograms == oracle; TSV rows == the main call's")
+    print("cohort profile (depth 3): " + json.dumps(_cohort_split(
+        wall, stages, "batched grange hists")))
+    # the device sweeps alone, the tables already on the card: one batched
+    # sweep against the three per-sample stream sweeps
+    tables = [samples[p].sorted_view() for p in cohort]
+    keys, w, n_live = eng.upload_tables(tables)
+    ones = [eng.upload_sample(*t) for t in tables]
+    print("cohort sweeps on the card: " + json.dumps(dict(
+        batched_sweep_ms=_cuda_ms(
+            lambda: eng.hist_device_stream_batched(keys, w, n_live), 2),
+        per_sample_sweeps_ms=[_cuda_ms(
+            lambda o=o: eng.hist_device_stream(*o), 2) for o in ones])))
+    del keys, w, ones
+    print("depth-1 mask phase of the same samples (pass-1 prefilter s): "
+          + json.dumps({p: main_per.get(p, {}).get("pass-1 prefilter")
+                        for p in cohort}))
+    return launches
 
 
 # ---- the small-database phase -------------------------------------------
@@ -701,7 +803,8 @@ def _sketch_phase(a, work):
 
 
 def _merge_phase(a, work, db):
-    """(j) profile in the merge regime; (k) query of fasta inputs."""
+    """(j) profile in the merge regime; (k) query of fasta inputs. Returns
+    the database's genomes and small.sylsp's (path, planted names, picks)."""
     from sylph_tpu_torch.io import sylformat
 
     rng = np.random.default_rng(a.seed + 3)
@@ -736,7 +839,62 @@ def _merge_phase(a, work, db):
               f"(B7 {qlaunch['B7_seed']} launches)")
     print(f"check (k): query of {len(sel)} fasta genomes == the .syldb "
           f"query's rows for them ({len(rb)} rows; {qwall:.3f} s)")
-    return launches
+    return genomes, (spath, planted, picks)
+
+
+def _merge_cohort_phase(a, work, db, genomes, small):
+    """(o): ``profile small.syldb`` of small.sylsp and three more planted
+    samples (distinct planted sets) at the default merge depth of 8: one
+    batched merge join, its counts equal to per-sample joins, and each
+    sample's TSV rows list exactly its planted genomes."""
+    import torch
+
+    from sylph_tpu_torch.gpu.containment import (merge_join_counts,
+                                                 merge_join_counts_batched)
+
+    rng = np.random.default_rng(a.seed + 5)
+    spath, planted, picks = small
+    free = rng.permutation(np.setdiff1d(np.arange(len(genomes)), picks))
+    paths, want = [spath], {spath: planted}
+    for i in range(3):
+        p, pl, _smp = _planted_sample(
+            rng, genomes, free[i * ASM_PLANTED:(i + 1) * ASM_PLANTED],
+            ASM_ABSENT, f"small{i + 1}", work)
+        paths.append(p)
+        want[p] = pl
+    tsv = os.path.join(work, "small_cohort.tsv")
+    (launches, wall, stages, dc), samples = _capture_samples(
+        lambda: _drive(["profile", db, *paths, "-o", tsv]))
+    if dc._grange is not None or dc._use_buckets or \
+            dc.counters["batched_joins"] != 1:
+        _fail(f"(o) not one batched merge join: {dc.counters}")
+    smps = [samples[p] for p in paths]
+    keys, wts = dc.upload_tables(smps)
+    for smp in smps:
+        got = dc._cached(dc._cache, smp)
+        one = merge_join_counts(dc._index_dev, *dc.upload_table(smp))
+        if got is None or not np.array_equal(got, one.cpu().numpy()):
+            _fail(f"(o) {smp.file_name}: batched counts differ from the "
+                  "per-sample join's")
+    rows = _tsv_rows(tsv)
+    for p in paths:
+        name = samples[p].file_name
+        listed = {r.split("\t")[0] for r in rows.get(name, [])}
+        if listed != want[p]:
+            _fail(f"(o) {name}: TSV lists {len(listed)} genomes, "
+                  f"{len(listed & want[p])} of {len(want[p])} planted")
+    idx = dc._index_dev
+    tabs = [dc.upload_table(smp) for smp in smps]
+    one_ms = sum(_cuda_ms(lambda t=t: merge_join_counts(idx, *t), 3)
+                 for t in tabs)
+    split = dict(_cohort_split(wall, stages, "batched containment join"),
+                 batched_join_ms=_cuda_ms(lambda: merge_join_counts_batched(
+                     idx, keys, wts), 3),
+                 per_sample_joins_ms=one_ms, table_slots=int(keys.shape[1]))
+    print(f"check (o): one batched merge join of {len(smps)} samples == "
+          "per-sample joins; each TSV lists exactly its planted genomes")
+    print("merge cohort profile (depth 8): " + json.dumps(split))
+    torch.cuda.synchronize()
 
 
 def _bucket_phase(a, work):
@@ -954,7 +1112,7 @@ def _kernels(dc, loaded, launches, reads):
     ikey, gidg = eng._chunk_dev(0)
 
     def slice0(name):
-        _smp, sk, sc = loaded[name]
+        sk, sc = loaded[name][1:3]
         slices, P, CS, density = eng.plan(sk)
         skey, sw = eng.upload_sample(sk, sc)
         pk, pw = _pad_slice(skey, sw, *slices[0], P)
@@ -1088,6 +1246,87 @@ def _kernels(dc, loaded, launches, reads):
     return rows, record
 
 
+def _batched_kernels(dc, tables, launches, record):
+    """(p): B2b, B4b and B5b on chunk 0 of the GTDB-scale index against the
+    three cohort samples' slices (S = 3), sized as the batched sweep sizes
+    them, bit for bit against their plain versions and, at S = 1, against
+    B2, B4 and B5. ``launches`` are the cohort call's. B4b is launched here
+    only: the sweep takes it when the column capacity reaches TB (capr >=
+    64), which a batch over this index needs a largest sample of about 58M
+    k-mers for."""
+    import torch
+
+    from sylph_tpu_torch.gpu import bucket_fill as bf
+    from sylph_tpu_torch.gpu import bucket_join as bj
+    from sylph_tpu_torch.gpu.grange import _capr, _gather_slices
+
+    eng = dc._grange
+    g = eng.gidx
+    GE, nt, B, CI = g.g_eff, g.nt, g.B, g.CI
+    TB = bj.block_rows(B)
+    ikey, gidg = eng._chunk_dev(0)
+    keys, w, n_live = eng.upload_tables(tables)
+    P, CS, density = eng.plan_batched(n_live, keys.shape[1])
+    starts, ends = eng.batched_slices(keys, n_live)
+    ck, cw = _gather_slices(keys, w.to(torch.int32), starts[:, 0],
+                            ends[:, 0], P)
+    del keys, w
+    fills = [bf.bucket_fill(ck[s], cw[s], int(g.bases[0]), width=g.width,
+                            B=B, CS=CS, nt=nt, subwidth=g.subwidth)
+             for s in range(len(tables))]
+    dk = torch.stack([k.view(B, nt * CS) for k, _ in fills])
+    dw = torch.stack([x.view(B, nt * CS) for _, x in fills])
+    del fills, ck, cw
+    S, _, LW = dk.shape
+    capr = _capr(density, TB)
+    jkw = dict(G=GE, nt=nt, tile=g.tile)
+    grids = B * CI * 8 + S * B * LW * 12         # index keys + cell grids
+    ops = sum(_live_compares(ikey, dw[s], nt, g.tile)
+              for s in range(S)) * INT32_OPS_PER_COMPARE
+    print(f"batched chunk 0: S={S}, P={P}, CS={CS}, LW={LW}, "
+          f"density={density:.4f}, capr={capr}")
+
+    def at_one(name, batched, single):
+        """The batched kernel at S = 1 against its single-sample kernel."""
+        one = batched(dk[:1], dw[:1])
+        got = (one[0][0], one[1]) if isinstance(one, tuple) else (one[0],)
+        want = single(dk[0], dw[0])
+        _same(f"{name} at S = 1", got,
+              want if isinstance(want, tuple) else (want,))
+
+    cases = (
+        ("B2b_join_codes_compact_batched", "sylph_tpu/tpu/grange.py:958",
+         lambda k, x: bj.join_codes_compact_batched(ikey, gidg, k, x,
+                                                    CAPR=capr, **jkw),
+         lambda k, x: bj.join_codes_compact_batched_plain(
+             ikey, gidg, k, x, CAPR=capr, **jkw),
+         lambda k, x: bj.join_codes_compact(ikey, gidg, k, x, CAPR=capr,
+                                            **jkw),
+         grids + B * CI * 4 + S * B // TB * capr * CI * 4),
+        ("B4b_join_codes_batched", "sylph_tpu/tpu/grange.py:923",
+         lambda k, x: bj.join_codes_batched(ikey, gidg, k, x, **jkw),
+         lambda k, x: bj.join_codes_batched_plain(ikey, gidg, k, x, **jkw),
+         lambda k, x: bj.join_codes(ikey, gidg, k, x, **jkw),
+         grids + B * CI * 4 + S * B * CI * 4),
+        ("B5b_join_counts_batched", "sylph_tpu/tpu/grange.py:816",
+         lambda k, x: bj.join_counts_batched(ikey, k, x, nt=nt,
+                                             tile=g.tile),
+         lambda k, x: bj.join_counts_batched_plain(ikey, k, x, nt=nt,
+                                                   tile=g.tile),
+         lambda k, x: bj.join_counts(ikey, k, x, nt=nt, tile=g.tile),
+         grids + S * B * CI * 4))
+    for name, replaces, kern, plain, single, nbytes in cases:
+        got = kern(dk, dw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain(dk, dw)
+        err = _same(name, got, want if isinstance(want, tuple) else (want,))
+        at_one(name, kern, single)
+        record(name, "join.cu", replaces, err,
+               _cuda_ms(lambda: kern(dk, dw), 10),
+               _cuda_ms(lambda: plain(dk, dw), 1), nbytes, ops,
+               n_launches=launches[name])
+
+
 def _seed_kernels(device, reads, record):
     """B7 and B8 on one [SEED_BATCH, 256] batch of the real reads (the
     main path's shape for 150-bp reads) against their plain versions."""
@@ -1198,11 +1437,18 @@ def main(argv=None) -> int:
               f"nt={g.nt}, {g.spill_kmers.size} spilled, "
               f"{g.n_heavy} heavy runs")
         loaded = _check_outputs(dc, samples, tsv)
-        _check_reads(dc, reads, card, host_path, abundant, tsv, per, ingest)
+        host_tbl = _check_reads(dc, reads, card, host_path, abundant, tsv,
+                                per, ingest)
+        cohort = {samples[n][0]: loaded[n][3] for n in ("sample", "deep")}
+        cohort[host_path] = host_tbl[2]
+        c_launches = _cohort_phase(dc, db, cohort, tsv, per)
         small_db, asm_paths, sk_launches = _sketch_phase(a, work)
-        _merge_phase(a, work, small_db)
+        genomes, small = _merge_phase(a, work, small_db)
+        _merge_cohort_phase(a, work, small_db, genomes, small)
         bdc, bsmp, b_launches = _bucket_phase(a, work)
         rows, record = _kernels(dc, loaded, launches, reads)
+        _batched_kernels(dc, [loaded["sample"][1:3], loaded["deep"][1:3],
+                              host_tbl[:2]], c_launches, record)
         _small_db_kernels(bdc, bsmp, asm_paths, b_launches, sk_launches,
                           record)
     finally:

@@ -15,8 +15,10 @@ Three regimes by total index size, as in the JAX package:
     host probe.
 In the merge and bucket regimes the exact statistics read the cached device
 counts (genome_covs). Statistics stay in host f64 either way, so TSVs stay
-byte-identical to the host engine. Samples run one at a time; the JAX
-package's multi-device sharding and batched prefetch are not ported.
+byte-identical to the host engine. ``prefetch`` batches a cohort of samples
+(merge: one batched join; grange: one batched histogram sweep; bucket:
+nothing, its samples are served one at a time). The JAX package's
+multi-device sharding is not ported.
 """
 
 import logging
@@ -28,15 +30,15 @@ import torch
 
 from ..core.types import GenomeSketch, SequencesSketch
 from ..gpu.bucket_join import bucket_join_counts, build_bucketed_index
-from ..gpu.containment import build_host_index, merge_join_counts
+from ..gpu.containment import (build_host_index, merge_join_counts,
+                                merge_join_counts_batched)
 from ..gpu.grange import GRangeEngine, build_grange_index, resolve_device
 from ..gpu.keys import KEY_PAD
 from ..utils.timing import stage_timer
 
 log = logging.getLogger("sylph")
 
-_HISTS_CACHE_CAP = 16           # fallback histograms kept for the prefilter
-_COUNTS_CACHE_CAP = 16          # per-sample exact counts (merge, bucket)
+_CACHE_CAP = 16      # cached samples per cache; a prefetch grows it to S + 2
 
 
 class DeviceContainment:
@@ -54,6 +56,8 @@ class DeviceContainment:
         self._grange = None
         self._cache = {}            # id(sample) -> (ref, [M] int32 counts)
         self._hists_cache = {}      # id(sample) -> (ref, [G, 64])
+        self._cache_cap = _CACHE_CAP
+        self.counters = {"batched_joins": 0}    # merge-regime prefetches
         total = int(sum(g.genome_kmers.size for g in genome_sketches))
         if total >= self.GRANGE_MIN:
             self._init_grange(total)
@@ -168,29 +172,84 @@ class DeviceContainment:
         """[M] int32 exact sample counts of every index slot (merge and
         bucket regimes), cached by sample identity with a strong ref so a
         collected sample's id cannot alias the cache."""
-        hit = self._cache.get(id(sample))
-        if hit is not None and hit[0] is sample:
-            return hit[1]
+        hit = self._cached(self._cache, sample)
+        if hit is not None:
+            return hit
         n = int(sample.kmers.size)
         skey, sw = self.upload_table(sample)
         regime = "bucketed" if self._use_buckets else "merge"
         with stage_timer(f"device containment join ({self.index.keys.size}"
                          f" k-mers x {n} sample k-mers, {regime})"):
             counts = self.device_counts(skey, sw, n).cpu().numpy()
-        while len(self._cache) >= _COUNTS_CACHE_CAP:
-            self._cache.pop(next(iter(self._cache)))
-        self._cache[id(sample)] = (sample, counts)
+        self._cache_put(self._cache, sample, counts)
         return counts
+
+    def _cache_put(self, cache: dict, sample, value) -> None:
+        """Keep ``value`` for ``sample`` (a strong ref, so a collected
+        sample's id cannot alias it), evicting the oldest past the cap."""
+        cache[id(sample)] = (sample, value)
+        while len(cache) > self._cache_cap:
+            cache.pop(next(iter(cache)))
+
+    @staticmethod
+    def _cached(cache: dict, sample):
+        hit = cache.get(id(sample))
+        return hit[1] if hit is not None and hit[0] is sample else None
+
+    def prefetch(self, samples: List[SequencesSketch]) -> None:
+        """Batch a cohort's device work (sylph_tpu/engine/device_exec.py:
+        302-370). Grange: one batched histogram sweep of the samples that
+        have no streamed device view and no cached histogram, when there
+        are at least two; merge: one batched join of the uncached samples
+        into the counts cache; bucket: nothing. The caches grow to hold the
+        whole cohort (S + 2), so no sample evicts another before it is
+        read."""
+        if self._grange is not None:
+            todo = [s for s in samples if s._device_view is None
+                    and self._cached(self._hists_cache, s) is None]
+            if len(todo) < 2:
+                return
+            with stage_timer(f"sample tables ({len(todo)} samples)"):
+                tables = [s.sorted_view() for s in todo]
+            self._cache_cap = max(self._cache_cap, len(todo) + 2)
+            with stage_timer(f"batched grange hists ({self._grange.gidx.m} "
+                             f"k-mers x {len(todo)} samples)"):
+                hs = self._grange.hists_batched(tables)
+            for s, h in zip(todo, hs):
+                self._cache_put(self._hists_cache, s, h)
+            return
+        todo = [s for s in samples if self._cached(self._cache, s) is None]
+        if len(todo) < 2 or self._use_buckets:
+            return
+        with stage_timer(f"sample tables ({len(todo)} samples)"):
+            keys, wts = self.upload_tables(todo)
+        self._cache_cap = max(self._cache_cap, len(todo) + 2)
+        self.counters["batched_joins"] += 1
+        with stage_timer(f"batched containment join ({self.index.keys.size}"
+                         f" k-mers x {len(todo)} samples x {keys.shape[1]} "
+                         "table slots)"):
+            counts = merge_join_counts_batched(self._index_dev, keys,
+                                               wts).cpu().numpy()
+        for s, c in zip(todo, counts):
+            self._cache_put(self._cache, s, c)
 
     def upload_table(self, sample: SequencesSketch):
         """The sample's table on the device, padded to a power of two (at
         least 1024) as the JAX package pads it to bound compile shapes;
         kept, so both engines see the same table."""
-        n = int(sample.kmers.size)
-        t = max(1024, 1 << int(np.ceil(np.log2(max(n, 1)))))
-        keys, wts = self._pad_table(sample, t)
-        return (torch.from_numpy(keys).to(self.device),
-                torch.from_numpy(wts).to(self.device))
+        keys, wts = self.upload_tables([sample])
+        return keys[0], wts[0]
+
+    def upload_tables(self, samples: List[SequencesSketch]):
+        """[S, T] (keys, weights) of the samples' tables on the device, each
+        padded as upload_table pads it, T from the largest."""
+        t = max(1024, 1 << int(np.ceil(np.log2(max(
+            max(s.kmers.size for s in samples), 1)))))
+        tabs = [self._pad_table(s, t) for s in samples]
+        return (torch.from_numpy(np.stack([k for k, _ in tabs])).to(
+                    self.device),
+                torch.from_numpy(np.stack([w for _, w in tabs])).to(
+                    self.device))
 
     def device_counts(self, skey: torch.Tensor, sw: torch.Tensor,
                       n: int) -> torch.Tensor:
@@ -209,11 +268,14 @@ class DeviceContainment:
     def candidates_mask(self, sample: SequencesSketch, mask_kwargs: dict):
         """[G] bool candidate mask computed ON DEVICE (grange regime), or
         None: outside grange, where the prefilter reads the histogram of
-        the exact counts; or when the index has heavy runs (their marker
-        bins expand on the host) or a degenerate spill list. Spill only
-        ADDS counts, so genomes with any spill hit are OR-ed into the
-        candidate set (superset-safe)."""
-        if self._grange is None:
+        the exact counts; for a sample whose histogram ``prefetch`` cached,
+        which the prefilter then reads through ``hists`` (the JAX package
+        sweeps such a sample again here, device_exec.py:517-529); or when
+        the index has heavy runs (their marker bins expand on the host) or
+        a degenerate spill list. Spill only ADDS counts, so genomes with
+        any spill hit are OR-ed into the candidate set (superset-safe)."""
+        if self._grange is None or \
+                self._cached(self._hists_cache, sample) is not None:
             return None
         g = self._grange.gidx
         if g.n_heavy or g.spill_kmers.size > (1 << 20):
@@ -256,9 +318,7 @@ class DeviceContainment:
         if out.ndim == 2:
             # a chunk failed its conservation check and the engine returned
             # the full histogram: cache it for the host prefilter path
-            self._hists_cache[id(sample)] = (sample, out)
-            while len(self._hists_cache) > _HISTS_CACHE_CAP:
-                self._hists_cache.pop(next(iter(self._hists_cache)))
+            self._cache_put(self._hists_cache, sample, out)
             return None
         if g.spill_kmers.size:
             sh = self._grange._spill_hist(*table_fn())
@@ -276,9 +336,9 @@ class DeviceContainment:
             seg = (gids[m].astype(np.int64) * 64
                    + np.minimum(counts[m].astype(np.int64), 63))
             return np.bincount(seg, minlength=G * 64).reshape(G, 64)
-        hit = self._hists_cache.get(id(sample))
-        if hit is not None and hit[0] is sample:
-            return hit[1]
+        hit = self._cached(self._hists_cache, sample)
+        if hit is not None:
+            return hit
         dv = sample._device_view
         table_fn = _warm_table(sample, dv is not None)
         with stage_timer(

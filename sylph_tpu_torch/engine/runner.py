@@ -7,13 +7,18 @@ Behavioral spec: sylph ``contain`` (src/contain.rs:115-351) and its helpers
 TSVs are byte-identical to sylph_tpu's host engine. Genomes are .syldb
 databases or fasta files, sketched on the same device; samples are .sylsp
 sketches or raw reads (fastq, -r, -1/-2), sketched there too while, in the
-grange regime, their k-mers stream to it. Samples run one after another:
-raw-read samples first, then sketches, as the JAX package orders them.
+grange regime, their k-mers stream to it. Samples run in cohorts of
+``SYLPH_COHORT_DEPTH`` (runner.py:599-636 of the JAX package): raw-read
+samples first, then sketches, each cohort loading on a thread pool while the
+one before it is processed, its device work batched by
+``DeviceContainment.prefetch``; results come out in input order.
 """
 
 import logging
 import math
+import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import List, Optional, TextIO
 
@@ -424,6 +429,55 @@ def process_sample(opts: ContainOptions, sample: SequencesSketch,
     return results
 
 
+def cohort_depth(device_engine) -> int:
+    """Samples per cohort: ``SYLPH_COHORT_DEPTH``, else 1 where the engine
+    serves streamed samples (grange: the host ingest dominates, so sample
+    i+1 loads while sample i is processed) and 8 elsewhere (the batched
+    merge join)."""
+    env = os.environ.get("SYLPH_COHORT_DEPTH")
+    if env:
+        return max(1, int(env))
+    return 1 if device_engine.serves_streams() else 8
+
+
+def _cohorts(opts: ContainOptions, items, genome_sketches, device_engine):
+    """(read files, results or None) per sample, in input order
+    (runner.py:599-636 of the JAX package). The next cohort's loads are
+    submitted to a thread pool before the current cohort is processed; a
+    cohort of more than one loaded sample is prefetched as a batch. A
+    sample that fails to load (None) is skipped in place; an error raised
+    in a load, SystemExit from a bad .sylsp included, reaches the caller
+    through Future.result()."""
+    depth = cohort_depth(device_engine)
+    groups = [items[i:i + depth] for i in range(0, len(items), depth)]
+
+    def load(item):
+        rf, is_sketch = item
+        with stage_timer(f"load/sketch sample {rf[0]}"):
+            return rf, _load_sample(opts, rf, is_sketch, genome_sketches,
+                                    device_engine)
+
+    with ThreadPoolExecutor(max_workers=max(1, min(opts.threads, depth))
+                            ) as pool:
+        pend = [pool.submit(load, it) for it in groups[0]] if groups else []
+        for gi in range(len(groups)):
+            cur = [f.result() for f in pend]
+            pend = ([pool.submit(load, it) for it in groups[gi + 1]]
+                    if gi + 1 < len(groups) else [])
+            loaded = [s for _, s in cur if s is not None]
+            if len(loaded) > 1:
+                device_engine.prefetch(loaded)
+            for rf, sample in cur:
+                if sample is None:
+                    yield rf, None
+                    continue
+                with stage_timer(f"process sample {rf[0]}",
+                                 items=len(genome_sketches)):
+                    results = process_sample(opts, sample, genome_sketches,
+                                             device_engine)
+                yield rf, results
+
+
 def _device_engine_for(genome_sketches, device):
     """The device engine of this database (one per contain() call)."""
     from .device_exec import DeviceContainment
@@ -477,15 +531,9 @@ def contain(opts: ContainOptions, pseudotax: bool,
     print_header(opts.pseudotax, out, opts.estimate_unknown)
     samples = ([(rf, False) for rf in read_files]
                + [([f], True) for f in read_sketch_files])
-    for rf, is_sketch in samples:
-        with stage_timer(f"load/sketch sample {rf[0]}"):
-            sample = _load_sample(opts, rf, is_sketch, genome_sketches,
-                                  device_engine)
-        if sample is not None:
-            with stage_timer(f"process sample {rf[0]}",
-                             items=len(genome_sketches)):
-                results = process_sample(opts, sample, genome_sketches,
-                                         device_engine)
+    for rf, results in _cohorts(opts, samples, genome_sketches,
+                                device_engine):
+        if results is not None:
             for r in results:
                 print_ani_result(r, opts.pseudotax, out)
             out.flush()

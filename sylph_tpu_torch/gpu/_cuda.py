@@ -30,7 +30,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"B1_fill": 0, "B2_join_codes_compact": 0, "B3_repack": 0,
             "B4_join_codes": 0, "B5_join_counts": 0,
-            "B5p_bucket_join": 0, "B7_seed": 0, "B8_repack2": 0}
+            "B5p_bucket_join": 0, "B7_seed": 0, "B8_repack2": 0,
+            "B2b_join_codes_compact_batched": 0,
+            "B4b_join_codes_batched": 0, "B5b_join_counts_batched": 0}
 BUILD_LOG = {}                 # source name -> nvcc/ptxas output
 BUILD_SECONDS = {}             # source name -> wall seconds of its nvcc
 
@@ -124,7 +126,7 @@ def library(name: str) -> ctypes.CDLL:
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {                 # C entry point -> argument types
     "fill_cells": [_P, _P] + [_I64] * 7 + [_P, _P, _P],
-    "join_launch": [_I32, _P, _P, _P, _P] + [_I64] * 8 + [_P, _P, _P],
+    "join_launch": [_I32, _P, _P, _P, _P] + [_I64] * 9 + [_P, _P, _P],
     "repack_launch": [_P] + [_I64] * 4 + [_P, _P],
     "repack64_launch": [_P] + [_I64] * 4 + [_P, _P],
     "seed_launch": [_P, _P, _I64, _I32, _I32, ctypes.c_uint64, _P, _P, _P],

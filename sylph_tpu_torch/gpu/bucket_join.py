@@ -11,6 +11,9 @@ compare kernel's wrappers with their plain versions:
   join_codes           B4  [B, CI] int32 codes gid*64 + min(count, 63)
   join_codes_compact   B2  the codes, each column top-packed to CAPR rows
                            per TB-row block, plus the live count
+  join_*_batched       B5b, B4b, B2b: the same for S samples' [S, B, LW]
+                           cell grids against one chunk, codes tagged
+                           s*G*64 (the batched grange sweep)
   bucket_join_device   B5' the fill plus B5's compare at the whole-range
                            layout of the bucket regime
 
@@ -139,6 +142,48 @@ def _block_counts(ikey: torch.Tensor, dk: torch.Tensor, dw: torch.Tensor,
     return torch.cat(parts, dim=1)
 
 
+def join_counts_batched_plain(ikey, dk, dw, *, nt: int = 1,
+                              tile: int = 0) -> torch.Tensor:
+    """Plain version of B5b (join_counts_batched): [S, B, CI] counts of one
+    index chunk against S samples' [S, B, LW] cell grids."""
+    return torch.stack([_block_counts(ikey, dk[s], dw[s], nt=nt, tile=tile)
+                        for s in range(dk.shape[0])])
+
+
+def join_codes_batched_plain(ikey, gid, dk, dw, *, G: int, nt: int = 1,
+                             tile: int = 0) -> torch.Tensor:
+    """Plain version of B4b (join_codes_batched): sample-tagged codes
+    s*G*64 + gid*64 + min(count, 63), SENT where dead."""
+    counts = join_counts_batched_plain(ikey, dk, dw, nt=nt, tile=tile)
+    live = (counts > 0) & (gid < G)
+    tag = torch.arange(dk.shape[0], dtype=torch.int64,
+                       device=ikey.device)[:, None, None] * (G * HIST_H)
+    codes = (tag + gid.to(torch.int64) * HIST_H
+             + torch.clamp(counts, max=HIST_H - 1))
+    return torch.where(live, codes, SENT).to(torch.int32)
+
+
+def join_codes_compact_batched_plain(ikey, gid, dk, dw, *, G: int,
+                                     CAPR: int, nt: int = 1, tile: int = 0):
+    """Plain version of B2b (join_codes_compact_batched): each sample's
+    B4b codes, each TB-row block's columns top-packed into CAPR rows (row
+    order kept, overflow dropped) -> (codes [S, B/TB*CAPR, CI], n_live
+    summed over the batch)."""
+    codes = join_codes_batched_plain(ikey, gid, dk, dw, G=G, nt=nt,
+                                     tile=tile)
+    S, B, CI = codes.shape
+    TB = block_rows(B)
+    c4 = codes.view(S, B // TB, TB, CI)
+    live = c4 != SENT
+    li = live.to(torch.int64)
+    rank = torch.cumsum(li, dim=2) - li
+    out = torch.full((S, B // TB, CAPR, CI), SENT, dtype=torch.int32,
+                     device=codes.device)
+    smp, blk, row, col = (live & (rank < CAPR)).nonzero(as_tuple=True)
+    out[smp, blk, rank[smp, blk, row, col], col] = c4[smp, blk, row, col]
+    return out.view(S, B // TB * CAPR, CI), li.sum()
+
+
 def join_counts_plain(ikey, dk, dw, *, nt: int = 1,
                       tile: int = 0) -> torch.Tensor:
     """Plain version of B5 (join_counts)."""
@@ -147,35 +192,32 @@ def join_counts_plain(ikey, dk, dw, *, nt: int = 1,
 
 def join_codes_plain(ikey, gid, dk, dw, *, G: int, nt: int = 1,
                      tile: int = 0) -> torch.Tensor:
-    """Plain version of B4 (join_codes)."""
-    counts = _block_counts(ikey, dk, dw, nt=nt, tile=tile)
-    live = (counts > 0) & (gid < G)
-    codes = gid * HIST_H + torch.clamp(counts, max=HIST_H - 1)
-    return torch.where(live, codes, SENT).to(torch.int32)
+    """Plain version of B4 (join_codes): B4b at S = 1 (tag 0)."""
+    return join_codes_batched_plain(ikey, gid, dk[None], dw[None], G=G,
+                                    nt=nt, tile=tile)[0]
 
 
 def join_codes_compact_plain(ikey, gid, dk, dw, *, G: int, CAPR: int,
                              nt: int = 1, tile: int = 0):
-    """Plain version of B2 (join_codes_compact): the B4 codes, each
-    TB-row block's columns top-packed into CAPR rows (row order kept,
-    overflow dropped) -> (codes, n_live)."""
-    codes = join_codes_plain(ikey, gid, dk, dw, G=G, nt=nt, tile=tile)
-    B, CI = codes.shape
-    TB = block_rows(B)
-    c3 = codes.view(B // TB, TB, CI)
-    live = c3 != SENT
-    li = live.to(torch.int64)
-    rank = torch.cumsum(li, dim=1) - li
-    out = torch.full((B // TB, CAPR, CI), SENT, dtype=torch.int32,
-                     device=codes.device)
-    blk, row, col = (live & (rank < CAPR)).nonzero(as_tuple=True)
-    out[blk, rank[blk, row, col], col] = c3[blk, row, col]
-    return out.view(B // TB * CAPR, CI), li.sum()
+    """Plain version of B2 (join_codes_compact): B2b at S = 1."""
+    codes, n_live = join_codes_compact_batched_plain(
+        ikey, gid, dk[None], dw[None], G=G, CAPR=CAPR, nt=nt, tile=tile)
+    return codes[0], n_live
 
 
 # ---- kernel wrappers -------------------------------------------------------
 
+def _check_code_space(S: int, G: int) -> None:
+    """Sample-tagged int32 codes with a -1 sentinel: no tag may reach bit
+    31 (sylph_tpu/tpu/grange.py:1266)."""
+    if S * G * HIST_H + 1 >= 1 << 31:
+        raise ValueError(f"{S} samples x {G} genomes x {HIST_H} overflow "
+                         "the int32 code space")
+
+
 def _check_join(ikey, gid, dk, dw, nt, tile):
+    """Raise unless the chunk [B, CI], its gid grid and the [S, B, LW] cell
+    grids are what join.cu takes."""
     dev = ikey.device
     _cuda.require(ikey, "ikey", torch.int64, 2, dev)
     B, CI = ikey.shape
@@ -183,10 +225,10 @@ def _check_join(ikey, gid, dk, dw, nt, tile):
         _cuda.require(gid, "gid", torch.int32, 2, dev)
         if tuple(gid.shape) != (B, CI):
             raise ValueError(f"gid shape {tuple(gid.shape)} != {(B, CI)}")
-    _cuda.require(dk, "dk", torch.int64, 2, dev)
-    _cuda.require(dw, "dw", torch.int32, 2, dev)
-    LW = dk.shape[1]
-    if dk.shape[0] != B or tuple(dw.shape) != tuple(dk.shape):
+    _cuda.require(dk, "dk", torch.int64, 3, dev)
+    _cuda.require(dw, "dw", torch.int32, 3, dev)
+    LW = dk.shape[2]
+    if dk.shape[1] != B or tuple(dw.shape) != tuple(dk.shape):
         raise ValueError(f"cell grids {tuple(dk.shape)}/{tuple(dw.shape)} "
                          f"do not match index rows {B}")
     if LW < 1 or LW % max(nt, 1):
@@ -198,36 +240,47 @@ def _check_join(ikey, gid, dk, dw, nt, tile):
                          f"shared-memory stage ({_JOIN_SMEM // 12} lanes)")
 
 
-def _launch_join(mode, ikey, gid, dk, dw, *, TB, nt, tile, G, CAPR, out,
-                 nlive_part):
+def _launch_join(mode, kname, ikey, gid, dk, dw, *, nt, tile, G=0, CAPR=0):
+    """One launch of join.cu over [S, B, LW] cell grids, counted as
+    ``kname`` -> (out, n_live): out [S, B, CI] (counts, codes) or
+    [S, B/TB*CAPR, CI] (compact codes, with n_live the batch's 0-d int64
+    live count; None otherwise)."""
+    _check_join(ikey, gid, dk, dw, nt, tile)
+    S, B, LW = dk.shape
+    CI = ikey.shape[1]
+    TB = block_rows(B)
+    dev = ikey.device
+    part = None
+    if mode == _MODE_COMPACT:
+        out = torch.empty((S, B // TB * CAPR, CI), dtype=torch.int32,
+                          device=dev)
+        part = torch.empty((S, B // TB, -(-CI // 128)), dtype=torch.int32,
+                           device=dev)
+    else:
+        out = torch.empty((S, B, CI), dtype=torch.int32, device=dev)
     lib = _cuda.library("join")
-    B, CI = ikey.shape
     null = ctypes.c_void_p(0)
-    with torch.cuda.device(ikey.device):
+    with torch.cuda.device(dev):
         rc = lib.join_launch(
             ctypes.c_int(mode), _cuda.ptr(ikey),
             _cuda.ptr(gid) if gid is not None else null,
-            _cuda.ptr(dk), _cuda.ptr(dw), ctypes.c_int64(B),
-            ctypes.c_int64(CI), ctypes.c_int64(dk.shape[1]),
+            _cuda.ptr(dk), _cuda.ptr(dw), ctypes.c_int64(S),
+            ctypes.c_int64(B), ctypes.c_int64(CI), ctypes.c_int64(LW),
             ctypes.c_int64(TB), ctypes.c_int64(max(nt, 1)),
             ctypes.c_int64(tile), ctypes.c_int64(G), ctypes.c_int64(CAPR),
-            _cuda.ptr(out),
-            _cuda.ptr(nlive_part) if nlive_part is not None else null,
+            _cuda.ptr(out), _cuda.ptr(part) if part is not None else null,
             _cuda.stream_ptr(ikey))
     _cuda.check(lib, rc, "join_launch")
+    _cuda.count_launch(kname)
+    return out, (part.sum(dtype=torch.int64) if part is not None else None)
 
 
 def _join_counts(ikey, dk, dw, nt, tile, kname):
-    """The count-grid launch shared by B5 and B5'."""
+    """The count-grid launch at S = 1, shared by B5 and B5'."""
     if ikey.device.type == "cpu":
         return join_counts_plain(ikey, dk, dw, nt=nt, tile=tile)
-    _check_join(ikey, None, dk, dw, nt, tile)
-    out = torch.empty(ikey.shape, dtype=torch.int32, device=ikey.device)
-    _launch_join(_MODE_COUNTS, ikey, None, dk, dw,
-                 TB=block_rows(ikey.shape[0]), nt=nt, tile=tile, G=0,
-                 CAPR=0, out=out, nlive_part=None)
-    _cuda.count_launch(kname)
-    return out
+    return _launch_join(_MODE_COUNTS, kname, ikey, None, dk[None], dw[None],
+                        nt=nt, tile=tile)[0][0]
 
 
 def join_counts(ikey: torch.Tensor, dk: torch.Tensor, dw: torch.Tensor, *,
@@ -237,6 +290,17 @@ def join_counts(ikey: torch.Tensor, dk: torch.Tensor, dw: torch.Tensor, *,
     return _join_counts(ikey, dk, dw, nt, tile, "B5_join_counts")
 
 
+def join_counts_batched(ikey: torch.Tensor, dk: torch.Tensor,
+                        dw: torch.Tensor, *, nt: int = 1,
+                        tile: int = 0) -> torch.Tensor:
+    """B5b: [S, B, CI] int32 counts of one index chunk against S samples'
+    [S, B, LW] cell grids."""
+    if ikey.device.type == "cpu":
+        return join_counts_batched_plain(ikey, dk, dw, nt=nt, tile=tile)
+    return _launch_join(_MODE_COUNTS, "B5b_join_counts_batched", ikey, None,
+                        dk, dw, nt=nt, tile=tile)[0]
+
+
 def join_codes(ikey: torch.Tensor, gid: torch.Tensor, dk: torch.Tensor,
                dw: torch.Tensor, *, G: int, nt: int = 1,
                tile: int = 0) -> torch.Tensor:
@@ -244,13 +308,27 @@ def join_codes(ikey: torch.Tensor, gid: torch.Tensor, dk: torch.Tensor,
     count is 0 or gid >= G."""
     if ikey.device.type == "cpu":
         return join_codes_plain(ikey, gid, dk, dw, G=G, nt=nt, tile=tile)
-    _check_join(ikey, gid, dk, dw, nt, tile)
-    out = torch.empty(ikey.shape, dtype=torch.int32, device=ikey.device)
-    _launch_join(_MODE_CODES, ikey, gid, dk, dw,
-                 TB=block_rows(ikey.shape[0]), nt=nt, tile=tile, G=G,
-                 CAPR=0, out=out, nlive_part=None)
-    _cuda.count_launch("B4_join_codes")
-    return out
+    return _launch_join(_MODE_CODES, "B4_join_codes", ikey, gid, dk[None],
+                        dw[None], nt=nt, tile=tile, G=G)[0][0]
+
+
+def join_codes_batched(ikey: torch.Tensor, gid: torch.Tensor,
+                       dk: torch.Tensor, dw: torch.Tensor, *, G: int,
+                       nt: int = 1, tile: int = 0) -> torch.Tensor:
+    """B4b: [S, B, CI] int32 sample-tagged codes s*G*64 + gid*64 +
+    min(count, 63) of one index chunk against S samples' cell grids."""
+    _check_code_space(dk.shape[0], G)
+    if ikey.device.type == "cpu":
+        return join_codes_batched_plain(ikey, gid, dk, dw, G=G, nt=nt,
+                                        tile=tile)
+    return _launch_join(_MODE_CODES, "B4b_join_codes_batched", ikey, gid,
+                        dk, dw, nt=nt, tile=tile, G=G)[0]
+
+
+def _check_capr(B: int, CAPR: int) -> None:
+    TB = block_rows(B)
+    if not 1 <= CAPR <= TB:
+        raise ValueError(f"CAPR={CAPR} outside [1, TB={TB}]")
 
 
 def join_codes_compact(ikey: torch.Tensor, gid: torch.Tensor,
@@ -259,23 +337,30 @@ def join_codes_compact(ikey: torch.Tensor, gid: torch.Tensor,
     """B2: (codes [B/TB*CAPR, CI] int32, n_live 0-d int64). Each TB-row
     block's column keeps its live codes in row order in its first CAPR
     rows; n_live counts them before the CAPR cut (conservation check)."""
-    B, CI = ikey.shape
-    TB = block_rows(B)
-    if not 1 <= CAPR <= TB:
-        raise ValueError(f"CAPR={CAPR} outside [1, TB={TB}]")
+    _check_capr(ikey.shape[0], CAPR)
     if ikey.device.type == "cpu":
         return join_codes_compact_plain(ikey, gid, dk, dw, G=G, CAPR=CAPR,
                                         nt=nt, tile=tile)
-    _check_join(ikey, gid, dk, dw, nt, tile)
-    out = torch.empty((B // TB * CAPR, CI), dtype=torch.int32,
-                      device=ikey.device)
-    ncb = -(-CI // 128)
-    part = torch.empty((B // TB, ncb), dtype=torch.int32,
-                       device=ikey.device)
-    _launch_join(_MODE_COMPACT, ikey, gid, dk, dw, TB=TB, nt=nt, tile=tile,
-                 G=G, CAPR=CAPR, out=out, nlive_part=part)
-    _cuda.count_launch("B2_join_codes_compact")
-    return out, part.sum(dtype=torch.int64)
+    out, n_live = _launch_join(_MODE_COMPACT, "B2_join_codes_compact", ikey,
+                               gid, dk[None], dw[None], nt=nt, tile=tile,
+                               G=G, CAPR=CAPR)
+    return out[0], n_live
+
+
+def join_codes_compact_batched(ikey: torch.Tensor, gid: torch.Tensor,
+                               dk: torch.Tensor, dw: torch.Tensor, *,
+                               G: int, CAPR: int, nt: int = 1,
+                               tile: int = 0):
+    """B2b: (codes [S, B/TB*CAPR, CI] int32 sample-tagged, n_live 0-d int64
+    summed over the batch) — B2 for S samples' [S, B, LW] cell grids
+    against one index chunk."""
+    _check_capr(ikey.shape[0], CAPR)
+    _check_code_space(dk.shape[0], G)
+    if ikey.device.type == "cpu":
+        return join_codes_compact_batched_plain(ikey, gid, dk, dw, G=G,
+                                                CAPR=CAPR, nt=nt, tile=tile)
+    return _launch_join(_MODE_COMPACT, "B2b_join_codes_compact_batched",
+                        ikey, gid, dk, dw, nt=nt, tile=tile, G=G, CAPR=CAPR)
 
 
 # ---- the whole-range bucket regime (B5') -----------------------------------

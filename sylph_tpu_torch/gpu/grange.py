@@ -24,6 +24,12 @@
     after compaction) are checked per chunk; a failed chunk is recomputed
     by the lossless full-grid path (B1 + B5 + bincount).
 
+  per batch of samples (device, hists_batched):
+    S padded tables share one sweep: per chunk S fills, one batched compare
+    (B2b, or B4b on dense batches) whose codes carry a sample tag s*G*64,
+    one repack chain and, at the end, one bincount over S*G*64 bins. A
+    batch that fails its conservation check is swept again per sample.
+
 The CUDA path is fixed (fill, fused compact codes, repack); the JAX
 package's TPU switches are gone and their defaults are module constants.
 """
@@ -37,7 +43,9 @@ import torch
 
 from .bucket_fill import bucket_fill, repack1_flat
 from .bucket_join import (_cell_ids, block_rows, cell_cs, join_codes,
-                          join_codes_compact, join_counts, sample_cs)
+                          join_codes_batched, join_codes_compact,
+                          join_codes_compact_batched, join_counts,
+                          sample_cs)
 from .containment import _bincount
 from .keys import HIST_H, KEY_PAD, SENT, from_pair_np, key_hi
 
@@ -364,6 +372,18 @@ def _pad_slice(skey: torch.Tensor, sw: torch.Tensor, s: int, e: int,
     return out_k, out_w
 
 
+def _gather_slices(keys: torch.Tensor, sw: torch.Tensor,
+                   starts: torch.Tensor, ends: torch.Tensor, P: int):
+    """[S, P] windows [starts[s], ends[s]) of the rows of an [S, T] table,
+    KEY_PAD / 0 past each window's end, gathered on the table's device."""
+    lane = torch.arange(P, device=keys.device)
+    idx = starts[:, None] + lane[None, :]
+    m = idx < ends[:, None]
+    idx = idx.clamp(max=keys.shape[1] - 1)
+    return (torch.where(m, keys.gather(1, idx), KEY_PAD),
+            torch.where(m, sw.gather(1, idx), 0))
+
+
 def _compact_codes(codes: torch.Tensor, density: float) -> torch.Tensor:
     """Repack (B3) a sparse SENT-coded int32 stream until it reaches the
     stop density. Windows widen as the stream gets sparser (up to 32k
@@ -403,42 +423,61 @@ def _capr(density: float, TB: int) -> int:
     return min(TB, max(8, -(-cap // 8) * 8))
 
 
-def _chunk_codes(ikey, gid_grid, skey, sw, base: int, *, width: int, B: int,
-                 CS: int, n_genomes: int, density: float, nt: int = 1,
-                 subwidth: int = 0, ov: int = 0):
-    """One chunk: fill (B1) + compare/code emission (B2 or B4) + repack
-    chain (B3).
+def _chunk_codes(ikey, gid_grid, skey, sw, base: int, **kw):
+    """One chunk, one sample: _chunk_codes_batched at S = 1 (kernels B1, B2
+    or B4, B3)."""
+    return _chunk_codes_batched(ikey, gid_grid, skey[None], sw[None], base,
+                                **kw)
 
-    Returns (codes, n_live, n_compacted, w_lost) — callers verify
-    n_live == n_compacted (compaction capacities) and w_lost == 0 (sample
-    cell capacity CS honored) and recompute the chunk with
-    _chunk_hist_lossless otherwise. ``nt`` > 1: hash-tiled index layout —
-    CS is the per-CELL lane capacity and the cell grids are viewed as
-    [B, nt*CS] so each index tile only scans its own lane group."""
-    sw = sw.to(torch.int32)
-    dk, dw = bucket_fill(skey, sw, base, width=width, B=B, CS=CS, nt=nt,
-                         subwidth=subwidth)
-    if nt > 1:
-        dk = dk.view(B, nt * CS)
-        dw = dw.view(B, nt * CS)
-    _raw, _nb, in_range = _cell_ids(key_hi(skey), width=width, B=B,
+
+def _chunk_codes_batched(ikey, gid_grid, skey_s, sw_s, base: int, *,
+                         width: int, B: int, CS: int, n_genomes: int,
+                         density: float, nt: int = 1, subwidth: int = 0,
+                         ov: int = 0):
+    """S sample slices ([S, P] sorted keys and weights) x one chunk: per
+    sample the fill (B1), then one compare/code emission over the batch
+    (B2b, or B4b when the column compaction would not shrink the block; B2
+    and B4 at S = 1) and one repack chain (B3) over the sample-tagged
+    stream. Codes are s*(G*H) + gid*H + mult, flattened sample-major and
+    column-major within a sample, as the JAX package flattens them.
+
+    Returns (codes, n_live, n_compacted, w_lost), each summed over the
+    batch — callers verify n_live == n_compacted (compaction capacities)
+    and w_lost == 0 (sample cell capacity CS honored). ``nt`` > 1:
+    hash-tiled index layout — CS is the per-CELL lane capacity and the cell
+    grids are viewed as [B, nt*CS] so each index tile only scans its own
+    lane group."""
+    S = skey_s.shape[0]
+    sw_s = sw_s.to(torch.int32)
+    fills = [bucket_fill(skey_s[s], sw_s[s], base, width=width, B=B, CS=CS,
+                         nt=nt, subwidth=subwidth) for s in range(S)]
+    dk = torch.stack([k.view(B, nt * CS) for k, _ in fills])
+    dw = torch.stack([w.view(B, nt * CS) for _, w in fills])
+    _raw, _nb, in_range = _cell_ids(key_hi(skey_s), width=width, B=B,
                                     base=base)
-    w_in = torch.where(in_range, sw, 0).sum(dtype=torch.int64)
+    w_in = torch.where(in_range, sw_s, 0).sum(dtype=torch.int64)
     G = n_genomes
     CI = ikey.shape[1]
-    tile = (CI - ov) // nt if nt > 1 else 0
+    kw = dict(G=G, nt=nt, tile=(CI - ov) // nt if nt > 1 else 0)
     TB = block_rows(B)
     capr = _capr(density, TB) if B % TB == 0 else TB
     if capr < TB:
-        codes, n_live = join_codes_compact(ikey, gid_grid, dk, dw, G=G,
-                                           CAPR=capr, nt=nt, tile=tile)
+        if S == 1:
+            codes, n_live = join_codes_compact(ikey, gid_grid, dk[0], dw[0],
+                                               CAPR=capr, **kw)
+            codes = codes[None]
+        else:
+            codes, n_live = join_codes_compact_batched(ikey, gid_grid, dk,
+                                                       dw, CAPR=capr, **kw)
         # each column's codes are top-packed into its first rows, so a
         # row-major flattening would crowd the live codes into the leading
         # repack windows; flatten column-major (as the JAX package does)
-        codes = codes.t().contiguous()
+        codes = codes.transpose(1, 2).contiguous()
         density = density * TB / capr
     else:
-        codes = join_codes(ikey, gid_grid, dk, dw, G=G, nt=nt, tile=tile)
+        codes = (join_codes(ikey, gid_grid, dk[0], dw[0], **kw)[None]
+                 if S == 1 else
+                 join_codes_batched(ikey, gid_grid, dk, dw, **kw))
         n_live = (codes != SENT).sum(dtype=torch.int64)
     codes = _compact_codes(codes.reshape(-1), density)
     n_comp = (codes != SENT).sum(dtype=torch.int64)
@@ -496,10 +535,13 @@ class GRangeEngine:
                  else max(0, min(max_resident_chunks, n_chunks)))
         self._dev_chunks = {i: self._upload(i) for i in range(n_res)}
         self._edges = None
-        # streamed-sample sweeps: device sorts, masks from the one-fetch
+        # sweeps of the index: per-sample (hists), batched (hists_batched)
+        # and batched ones whose probe sent them back to per-sample sweeps;
+        # for streamed samples, device sorts, masks from the one-fetch
         # stream sweep, and stream sweeps whose probe sent them back
-        self.counters = {"device_view_sorts": 0, "mask_stream_masks": 0,
-                         "mask_stream_rejected": 0}
+        self.counters = {"hists_sweeps": 0, "batched_sweeps": 0,
+                         "batched_rejected": 0, "device_view_sorts": 0,
+                         "mask_stream_masks": 0, "mask_stream_rejected": 0}
 
     def _upload(self, i: int):
         g = self.gidx
@@ -543,10 +585,14 @@ class GRangeEngine:
 
     def _spill_hist(self, skmers_u64: np.ndarray,
                     scounts: np.ndarray) -> np.ndarray:
-        """[G, H] contribution of the (tiny) host-side spill list."""
+        """[G, H] contribution of the (tiny) host-side spill list. An empty
+        sample adds nothing (the JAX package's copy indexes the empty
+        table and raises, sylph_tpu/tpu/grange.py:1489)."""
         gidx = self.gidx
         G, H = gidx.n_genomes, HIST_H
         out = np.zeros((G, H), np.int64)
+        if skmers_u64.size == 0:
+            return out
         idx = np.searchsorted(skmers_u64, gidx.spill_kmers)
         idxc = np.minimum(idx, max(skmers_u64.size - 1, 0))
         found = (skmers_u64.size > 0) & (idx < skmers_u64.size)
@@ -704,6 +750,128 @@ class GRangeEngine:
         self.counters["mask_stream_masks"] += 1
         return v[3:].astype(bool), int(v[2])
 
+    # ---- batched sweeps: S samples, one pass over the index --------------
+
+    def upload_tables(self, tables):
+        """([S, T] int64 keys with a KEY_PAD tail, [S, T] uint8 weights,
+        live lengths) of S sorted (kmers, counts) tables on the engine's
+        device; T is the next power of two (>= 1024) of the longest, as the
+        JAX package pads them."""
+        n_live = [int(k.size) for k, _ in tables]
+        T = max(1024, 1 << int(np.ceil(np.log2(max(max(n_live), 1)))))
+        keys = torch.full((len(tables), T), KEY_PAD, dtype=torch.int64,
+                          device=self.device)
+        w = torch.zeros((len(tables), T), dtype=torch.uint8,
+                        device=self.device)
+        for s, (k, c) in enumerate(tables):
+            kd, wd = self.upload_sample(k, c)
+            keys[s, :n_live[s]] = kd
+            w[s, :n_live[s]] = wd
+        return keys, w, n_live
+
+    def plan_batched(self, n_live: List[int], T: int,
+                     cs: Optional[int] = None):
+        """(P, CS, density) of a batched sweep over tables of these live
+        lengths padded to T, sized from the largest as sylph_tpu's
+        hist_device_stream_batched sizes pre-folded tables (grange.py:
+        1269-1302): P from the longest table per chunk, CS from it too
+        (the tables are unique) unless ``cs`` overrides it, the code
+        density over S*B*CI from 2x its unique count per chunk."""
+        gidx = self.gidx
+        n_chunks = len(gidx.chunk_keys)
+        n = max(max(n_live), 1)
+        mean = n / n_chunks
+        P = _quantize_p(1.3 * mean + 6.0 * np.sqrt(mean) + 64, T)
+        if cs is not None:
+            CS = cs
+        elif gidx.nt > 1:
+            CS = cell_cs(max(1, n // n_chunks), gidx.B * gidx.nt)
+        else:
+            CS = sample_cs(max(1, n // n_chunks), gidx.B, granularity=8)
+        S = len(n_live)
+        density = min(1.0, max(S * 2.0 * n / n_chunks, 512.0)
+                      / max(1, S * gidx.B * gidx.CI))
+        return P, CS, density
+
+    def batched_slices(self, keys: torch.Tensor, n_live: List[int]):
+        """[S, n_chunks] (starts, ends) of every chunk in each row of an
+        [S, T] table, searched over the row's live prefix only: the
+        KEY_PAD tail sorts first in int64, so a padded row is not sorted."""
+        e = self._edges_dev()
+        lo, hi = e[:, 0].contiguous(), e[:, 1].contiguous()
+        starts = torch.stack([torch.searchsorted(keys[s, :n], lo, side="left")
+                              for s, n in enumerate(n_live)])
+        ends = torch.stack([torch.searchsorted(keys[s, :n], hi, side="right")
+                            for s, n in enumerate(n_live)])
+        return starts, ends
+
+    def hist_device_stream_batched(self, keys: torch.Tensor,
+                                   w: torch.Tensor, n_live: List[int],
+                                   cs: Optional[int] = None):
+        """All-device histograms of S sorted unique tables in ONE sweep of
+        the index (sylph_tpu/tpu/grange.py:1242-1350): per chunk S fills
+        (B1), one batched compare (B2b, or B4b on dense batches) and one
+        repack chain over the sample-tagged stream, then one bincount over
+        S*g_eff*H + 1 bins. ``keys``/``w`` are [S, T] as upload_tables
+        gives them, ``n_live`` their live lengths.
+
+        Returns (hists [S, g_eff*H] device int64, probe, P): ``probe`` is a
+        device int64 [2] of (summed conservation differences, longest chunk
+        slice); the histograms are exact iff probe[0] == 0 and probe[1] <=
+        P. The port's bincount is exact, so the JAX probe's runs_cap leg
+        has no counterpart."""
+        gidx = self.gidx
+        G = self._GE
+        S, T = keys.shape
+        P, CS, density = self.plan_batched(n_live, T, cs)
+        starts, ends = self.batched_slices(keys, n_live)
+        sw = w.to(torch.int32)
+        n_chunks = len(gidx.chunk_keys)
+        codes_parts, diag = [], []
+        nxt = self._chunk_dev(0) if n_chunks else None
+        for i in range(n_chunks):
+            cur = nxt                # prefetch overlaps the previous join
+            nxt = self._chunk_dev(i + 1) if i + 1 < n_chunks else None
+            c_key, c_w = _gather_slices(keys, sw, starts[:, i], ends[:, i],
+                                        P)
+            ikey, gidg = cur
+            cod, nl, nc, wlost = _chunk_codes_batched(
+                ikey, gidg, c_key, c_w, int(gidx.bases[i]),
+                width=gidx.width, B=gidx.B, CS=CS, n_genomes=G,
+                density=density, nt=gidx.nt, subwidth=gidx.subwidth,
+                ov=gidx.ov)
+            codes_parts.append(cod)
+            diag.append((nl - nc).abs() + wlost)
+        # codes are (s*G + gid)*H + mult: one bincount over S*G bins
+        hist = hist_from_codes(torch.cat(codes_parts), n_genomes=S * G)
+        probe = torch.stack((torch.stack(diag).sum(),
+                             (ends - starts).max()))
+        return hist[:S * G * HIST_H].view(S, G * HIST_H), probe, P
+
+    def hists_batched(self, tables) -> np.ndarray:
+        """[S, G, HIST_H] exact histograms of S sorted, unique (kmers,
+        counts) tables through ONE batched sweep (sylph_tpu/tpu/grange.py:
+        1386-1422). Each row is folded (heavy-run markers) and gets its
+        spill probe; a batch that fails its conservation check falls back
+        to per-sample sweeps, which are exact on their own."""
+        self.counters["batched_sweeps"] += 1
+        keys, w, n_live = self.upload_tables(tables)
+        hist, probe, P = self.hist_device_stream_batched(keys, w, n_live)
+        v = probe.cpu().numpy()
+        if int(v[0]) != 0 or int(v[1]) > P:
+            log.info("batched grange sweep of %d samples failed its "
+                     "conservation check (difference %d, longest slice %d, "
+                     "P %d); per-sample sweeps follow", len(tables),
+                     int(v[0]), int(v[1]), P)
+            self.counters["batched_rejected"] += 1
+            return np.stack([self.hists(k, c) for k, c in tables])
+        rows = hist.cpu().numpy()
+        out = np.stack([self._fold_heavy(r) for r in rows])
+        if self.gidx.spill_kmers.size:
+            for s, (k, c) in enumerate(tables):
+                out[s] += self._spill_hist(np.asarray(k, np.uint64), c)
+        return out
+
     def hists(self, skmers_u64: Optional[np.ndarray],
               scounts: Optional[np.ndarray], mask_fn=None,
               device_view=None, table_fn=None) -> np.ndarray:
@@ -723,6 +891,7 @@ class GRangeEngine:
         lets the host sort overlap the device sweep."""
         gidx = self.gidx
         G, H = self._GE, HIST_H
+        self.counters["hists_sweeps"] += 1
         tbl = [skmers_u64, scounts]
 
         def _tbl():

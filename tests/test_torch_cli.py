@@ -11,6 +11,9 @@
   and streamed into the device view.
 - Genome fasta inputs beside the database, and the merge regime with no
   patch (tests/test_torch_small_db.py covers the small-database regimes).
+- Multi-sample cohorts: merge at its default depth, grange at depth 3 (one
+  batched sweep) and at depth 1 with raw reads, a bad sketch mid-cohort,
+  a sample skipped in place; TSVs byte-identical to the JAX host engine.
 - The device candidate mask: a superset of the host f64 mask, and equal to
   the JAX device mask except on rows whose ANI lies within _DEV_ANI_MARGIN
   of the floor (f32 pow/exp round differently in torch and XLA there).
@@ -202,6 +205,156 @@ def test_small_database_regimes_not_ported(world, tmp_path):
                      str(out)]) == 0
     assert out.read_text() == want.getvalue()
     assert len(want.getvalue().strip().splitlines()) > 1
+
+
+# ---- multi-sample cohorts --------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cohort(world):
+    """Two more read sets of the 80-genome world (genomes 10 and 55, 3 and
+    64, at coverages 3 / 1.5 and 1 / 4), sketched by the JAX package into
+    s1.fq.sylsp and s2.fq.sylsp; s2 sketched at c=50 too, above the
+    database's c=25, so that it is skipped when it loads; and a .sylsp
+    that is not a sketch."""
+    rng = np.random.default_rng(22)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    reads = []
+    for name, picks in (("s1", ((10, 3.0), (55, 1.5))),
+                        ("s2", ((3, 1.0), (64, 4.0)))):
+        seqs = []
+        for g, cov in picks:
+            with gzip.open(world / f"g{g:03d}.fa.gz", "rb") as f:
+                src = f.read().split(b"\n")[1]
+            for s in rng.integers(0, len(src) - 150,
+                                  size=int(len(src) * cov / 150)):
+                seqs.append(src[s:s + 150])
+        rf = world / f"{name}.fq"
+        with open(rf, "wb") as f:
+            for i in rng.permutation(len(seqs)):
+                f.write(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i], b"I" * 150))
+        reads.append(str(rf))
+    sketch(SketchOptions(files=[], reads=reads, sample_output_dir=str(world),
+                         c=25, k=31, threads=2))
+    (world / "c50").mkdir()
+    sketch(SketchOptions(files=[], reads=reads[1:],
+                         sample_output_dir=str(world / "c50"), c=50, k=31,
+                         threads=2))
+    (world / "bad.sylsp").write_bytes(b"not a sketch\n" * 10)
+    return {n: str(p) for n, p in (
+        ("db", world / "db.syldb"), ("raw", world / "sample.fq"),
+        ("sk", world / "sample.fq.sylsp"), ("s1", world / "s1.fq.sylsp"),
+        ("s2", world / "s2.fq.sylsp"), ("s2_raw", world / "s2.fq"),
+        ("c50", world / "c50" / "s2.fq.sylsp"),
+        ("bad", world / "bad.sylsp"))}
+
+
+def _jax_tsv(files, mode):
+    want = io.StringIO()
+    contain(ContainOptions(files=files, c=25, tpu=False),
+            pseudotax=(mode == "profile"), out=want)
+    return want.getvalue()
+
+
+def _port_tsv(files, mode, tmp_path, monkeypatch):
+    """(TSV, the call's device engine) of the port's CLI on ``files``."""
+    engines = []
+    make = runner._device_engine_for
+    monkeypatch.setattr(runner, "_device_engine_for", lambda *a, **kw:
+                        engines.append(make(*a, **kw)) or engines[-1])
+    out = tmp_path / f"{mode}.tsv"
+    assert cli.main([mode, *files, "-c", "25", "--device", "cpu", "-o",
+                     str(out)]) == 0
+    return out.read_text(), engines[0]
+
+
+def _small_chunks(monkeypatch):
+    """Grange forced, the index cut into chunks of 64 buckets: at the
+    default 2^25-slot chunks this small index leaves most columns empty and
+    the code streams fail their capacity checks (exact still, through the
+    per-sample path), which would hide the batched sweep."""
+    import functools
+
+    from sylph_tpu_torch.engine import device_exec
+    from sylph_tpu_torch.gpu import grange as tgr
+    monkeypatch.setattr(DeviceContainment, "GRANGE_MIN", 0)
+    monkeypatch.setattr(device_exec, "build_grange_index", functools.partial(
+        tgr.build_grange_index, chunk_slots=1 << 14, target_mean=256))
+
+
+@pytest.mark.parametrize("mode", ["profile", "query"])
+def test_cli_cohort_merge_default_depth(cohort, mode, tmp_path, monkeypatch):
+    """Raw reads and three sketches in the merge regime at the default
+    depth (8): one batched join for the four samples, TSVs byte-identical
+    to the JAX host engine's."""
+    monkeypatch.delenv("SYLPH_COHORT_DEPTH", raising=False)
+    files = [cohort[x] for x in ("db", "s1", "raw", "sk", "s2")]
+    want = _jax_tsv(files, mode)
+    got, eng = _port_tsv(files, mode, tmp_path, monkeypatch)
+    assert got == want
+    assert eng._grange is None and eng.counters["batched_joins"] == 1
+    # sample.fq and its sketch report under one name
+    assert len({r.split("\t")[0] for r in want.splitlines()[1:]}) == 3
+
+
+@pytest.mark.parametrize("mode", ["profile", "query"])
+def test_cli_cohort_grange_depth3(cohort, mode, tmp_path, monkeypatch):
+    """Grange forced at SYLPH_COHORT_DEPTH=3 over three sketches: one
+    batched sweep, no per-sample sweep, TSVs byte-identical to the JAX
+    host engine's."""
+    _small_chunks(monkeypatch)
+    monkeypatch.setenv("SYLPH_COHORT_DEPTH", "3")
+    files = [cohort[x] for x in ("db", "sk", "s1", "s2")]
+    want = _jax_tsv(files, mode)
+    got, eng = _port_tsv(files, mode, tmp_path, monkeypatch)
+    assert got == want
+    c = eng._grange.counters
+    assert (c["batched_sweeps"], c["batched_rejected"], c["hists_sweeps"],
+            c["mask_stream_masks"]) == (1, 0, 0, 0)
+    assert len({r.split("\t")[0] for r in want.splitlines()[1:]}) == 3
+
+
+def test_cli_cohort_grange_depth1_mixed(cohort, tmp_path, monkeypatch):
+    """Grange forced at the default depth (1): raw reads (streamed to the
+    device view) and sketches mixed, each sample loading while the one
+    before it is processed; TSV byte-identical to the JAX host engine's."""
+    monkeypatch.setattr(DeviceContainment, "GRANGE_MIN", 0)
+    monkeypatch.delenv("SYLPH_COHORT_DEPTH", raising=False)
+    files = [cohort[x] for x in ("db", "s1", "raw", "sk", "s2_raw")]
+    want = _jax_tsv(files, "profile")
+    got, eng = _port_tsv(files, "profile", tmp_path, monkeypatch)
+    assert got == want
+    c = eng._grange.counters
+    assert c["batched_sweeps"] == 0 and c["device_view_sorts"] >= 2
+    assert len({r.split("\t")[0] for r in want.splitlines()[1:]}) == 3
+
+
+def test_cli_cohort_bad_sylsp_exits_1(cohort, monkeypatch):
+    """A file that is not a sketch in the middle of a cohort: the error
+    raised on the load thread still fails the run with exit 1."""
+    monkeypatch.setenv("SYLPH_COHORT_DEPTH", "2")
+    files = [cohort[x] for x in ("db", "sk", "s1", "bad", "s2")]
+    with pytest.raises(SystemExit):
+        _jax_tsv(files, "profile")
+    assert cli.main(["profile", *files, "--device", "cpu"]) == 1
+
+
+def test_cli_cohort_skipped_sample_keeps_order(cohort, tmp_path,
+                                               monkeypatch):
+    """A sketch at a c above the database's is skipped where it stands;
+    the others keep their order and the TSV is the JAX host engine's."""
+    _small_chunks(monkeypatch)
+    monkeypatch.setenv("SYLPH_COHORT_DEPTH", "3")
+    files = [cohort[x] for x in ("db", "s2", "c50", "sk", "s1")]
+    want = _jax_tsv(files, "query")
+    got, eng = _port_tsv(files, "query", tmp_path, monkeypatch)
+    assert got == want
+    # cohorts (s2, c50, sample) and (s1): one batched sweep of the first
+    # cohort's two loaded samples, one per-sample sweep of s1
+    c = eng._grange.counters
+    assert (c["batched_sweeps"], c["hists_sweeps"]) == (1, 1)
+    names = [os.path.basename(r.split("\t")[0])
+             for r in want.splitlines()[1:]]
+    assert list(dict.fromkeys(names)) == ["s2.fq", "sample.fq", "s1.fq"]
 
 
 def test_cuda_without_gpu_raises(world, monkeypatch):

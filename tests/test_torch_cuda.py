@@ -124,6 +124,76 @@ def test_join_shared_memory_sizes_in_turn(cuda):
         assert int(got[1]) == int(want[1]) > 0
 
 
+@pytest.mark.parametrize("S", [1, 2, 5])
+@pytest.mark.parametrize("B,CI,LW,nt,tile,capr", [
+    (128, 136, 8, 1, 0, 16), (128, 64 + 16, 12, 4, 16, 8),
+    (100, 40, 8, 1, 0, 1),             # B % 64 != 0: one-row blocks
+    (64, 136, 2048, 1, 0, 16),         # S*LW past the 8,192-lane stage at
+    (64, 1024 + 128, 2048, 4, 256, 24),   # S = 5: the samples in groups
+    (64, 136, 8192, 1, 0, 16)])        # one sample, one row per stage
+def test_join_batched_modes_match_plain(cuda, S, B, CI, LW, nt, tile, capr):
+    """B5b, B4b and B2b against their plain versions, lane widths on both
+    sides of the shared-memory stage; at S = 1 equal to B5, B4 and B2."""
+    G = 9
+    ikey, gid = _index(B + CI, B, CI, G, 1 << 20, 64)
+    cells = [_cells(ikey, B + s, LW) for s in range(S)]
+    dk = torch.stack([k for k, _ in cells])
+    dw = torch.stack([w for _, w in cells])
+    dev = [t.to(cuda) for t in (ikey, gid, dk, dw)]
+    kw = dict(nt=nt, tile=tile)
+    got_c = bj.join_counts_batched(dev[0], dev[2], dev[3], **kw)
+    _equal((got_c,), (bj.join_counts_batched_plain(ikey, dk, dw, **kw),))
+    got_x = bj.join_codes_batched(*dev, G=G, **kw)
+    _equal((got_x,), (bj.join_codes_batched_plain(ikey, gid, dk, dw, G=G,
+                                                  **kw),))
+    got = bj.join_codes_compact_batched(*dev, G=G, CAPR=capr, **kw)
+    want = bj.join_codes_compact_batched_plain(ikey, gid, dk, dw, G=G,
+                                               CAPR=capr, **kw)
+    _equal((got[0],), (want[0],))
+    assert int(got[1]) == int(want[1]) > 0
+    if S == 1:
+        _equal((got_c[0], got_x[0]),
+               (bj.join_counts(dev[0], dev[2][0], dev[3][0], **kw),
+                bj.join_codes(dev[0], dev[1], dev[2][0], dev[3][0], G=G,
+                              **kw)))
+        one = bj.join_codes_compact(dev[0], dev[1], dev[2][0], dev[3][0],
+                                    G=G, CAPR=capr, **kw)
+        _equal((got[0][0],), (one[0],))
+        assert int(one[1]) == int(got[1])
+
+
+@pytest.mark.parametrize("nt", [1, 4])
+def test_engine_hists_batched_on_card_matches_cpu(cuda, nt):
+    """The batched grange sweep on the card (B1 fills, B2b, B3) equals the
+    CPU's, through one B2b launch per chunk and no per-sample sweep."""
+    rng = np.random.default_rng(40 + nt)
+    G, m = 50, 120_000
+    thr = ((1 << 64) - 1) // 20
+    kmers = rng.integers(0, thr, size=m, dtype=np.uint64)
+    gids = rng.integers(0, G, size=m).astype(np.int32)
+    tables = []
+    for n in (3000, 0, 5000, 1200):
+        sk = np.unique(np.concatenate([rng.choice(kmers, size=n // 2),
+                                       rng.integers(0, thr, size=n - n // 2,
+                                                    dtype=np.uint64)]))
+        tables.append((sk, rng.integers(1, 90, size=sk.size).astype(
+            np.uint32)))
+    idx = gr.build_grange_index(kmers, gids, G, chunk_slots=1 << 15,
+                                target_mean=512 if nt > 1 else 64, nt=nt,
+                                device=cuda)
+    on_cpu = gr.GRangeEngine(idx, device="cpu")
+    on_card = gr.GRangeEngine(idx, device=cuda)
+    want = on_cpu.hists_batched(tables)
+    n0 = bj._cuda.LAUNCHES["B2b_join_codes_compact_batched"]
+    got = on_card.hists_batched(tables)
+    np.testing.assert_array_equal(got, want)
+    assert want.sum() > 0
+    assert on_card.counters == on_cpu.counters
+    assert on_card.counters["hists_sweeps"] == 0
+    assert (bj._cuda.LAUNCHES["B2b_join_codes_compact_batched"] - n0
+            == len(idx.chunk_keys))
+
+
 @pytest.mark.parametrize("n,row,cap,dens", [
     (40_000, 4096, 512, 0.02), (9_000, 1024, 256, 0.4), (100, 1024, 256,
                                                           0.5)])
