@@ -77,6 +77,27 @@ and drives the port's main path once, at database scale:
      time, its plain version's, its bound and, for B3 and B8, one library
      call's.
 
+  6. The one-shot device pipeline (sylph_tpu_torch/gpu/pipeline.py), each
+     run with the launch counts set to 0 just before it: (q) bench.py's
+     ``profile`` config, 64 batches of [65,536, 256] codes generated on
+     the card (1.07 Gbp, c=200, k=31) against 1,024 genomes x 4,096
+     k-mers (half of each genome drawn from the batches' survivors):
+     ``sketch_batch`` (B6) per batch, ``condense_stream`` (B8),
+     ``finish_profile`` (the merge join, [G, 256] histograms, the f32
+     statistics); the histogram equals an exact oracle built through B7
+     without any per-read capacity; ``profile_step``,
+     ``sketch_batch_packed`` and ``finish_profile_batched`` (S = 8, the
+     ``multisample`` config) agree with it, and the card's statistics with
+     the CPU's; (s) the same batches under SYLPH_SEED_T=1: B9 launches, B6
+     does not, the histogram is (q)'s; (r) bench.py's ``gtdb`` shape on
+     the main path's grange engine: the main path's 7,158,278 reads in
+     [65,536, 256] batches through B6 and B8, the occurrence-stream
+     ``hist_device_stream`` (folded on the card) and the statistics; the
+     histogram equals the B7 oracle and the sweep's probe is exact.
+     B6, B9 and B10 are held against their plain versions at the [65,536,
+     256] shape, at L=512 with c=2 (more than 128 survivors a read), and
+     B10 at k=15.
+
 Any failed check raises and the script exits non-zero. The last lines are
 the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -131,6 +152,16 @@ BUCKET_SAMPLE_KMERS = 5_300_000
 BUCKET_PLANTED = 128
 BUCKET_CI_MAX = 256
 THREADS = 8                    # the card's host has 8 cores
+# the one-shot device pipeline (q)-(s): bench.py's profile config
+# (bench.py:51-57) at full width, and its multisample config (S = 8)
+PROFILE_BATCHES = 64           # x [65,536, 256] codes: 1.07 Gbp
+PROFILE_READS = 1 << 16
+PROFILE_LEN = 256
+PROFILE_GENOMES = 1024         # x 4,096 k-mers, half of them survivors
+PROFILE_KPG = 4096
+PROFILE_H = 256                # the pipeline's DEFAULT_BUCKETS
+MULTISAMPLE = 8
+PIPE_CAP = min(128, 4 * PROFILE_LEN // C + 8)     # B6's lanes: 13
 
 
 def _parse(argv):
@@ -286,7 +317,8 @@ def _make_reads(a, work, kmers, taken):
     k-mers of ABUNDANT genomes outside ``taken`` are planted once each and
     20% of them twice; the other reads carry singletons strided over the
     remaining genomes (about 1% of each, below every threshold). Returns
-    (path, the abundant genome names, bases written)."""
+    (path, the abundant genome names, bases written, the reads' 2-bit
+    codes [n_reads, READ_LEN] uint8 for the one-shot pipeline's (r))."""
     from sylph_tpu_torch.io import bgzf
     from sylph_tpu_torch.kmer.hashing import inv_mm_hash64_np
 
@@ -315,6 +347,7 @@ def _make_reads(a, work, kmers, taken):
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     tail = b"\n+\n" + b"I" * READ_LEN + b"\n"
     sh = (2 * (30 - np.arange(31, dtype=np.uint64)))[None, :]
+    all_codes = np.empty((n_reads, READ_LEN), np.uint8)
 
     def text_chunks():
         for s in range(0, n_reads, 1 << 16):
@@ -325,13 +358,15 @@ def _make_reads(a, work, kmers, taken):
             off = rng.integers(0, READ_LEN - 31 + 1, size=b)
             np.put_along_axis(codes, off[:, None] + np.arange(31)[None, :],
                               pc, axis=1)
+            all_codes[s:s + b] = codes
             seqs = bases[codes]
             yield b"".join(b"@r%d\n%s%s" % (s + i, seqs[i].tobytes(), tail)
                            for i in range(b))
 
     path = os.path.join(work, "reads.fastq.gz")
     bgzf.write(path, text_chunks(), level=1)
-    return path, {f"g{g:06d}.fa" for g in abundant}, n_reads * READ_LEN
+    return (path, {f"g{g:06d}.fa" for g in abundant}, n_reads * READ_LEN,
+            all_codes)
 
 
 # ---- main path ---------------------------------------------------------
@@ -399,31 +434,31 @@ def _main_path(db, reads, sketches, work):
     return dc, tsv, launches, sketched[reads], per, stages.ingest
 
 
-def _oracle_hist(genomes, sk, sc, device):
-    """[G, 64] exact histograms by searchsorted of every index k-mer into
-    the sorted sample (tests/test_grange.py's oracle, on the card)."""
+def _oracle_hist(genomes, sk, sc, device, H=64):
+    """[G, H] exact histograms by searchsorted of every index k-mer into
+    the sorted sample (tests/test_grange.py's oracle, on the card).
+    ``genomes`` holds GenomeSketches or plain k-mer arrays."""
     import torch
     G = len(genomes)
+    kmers = [getattr(g, "genome_kmers", g) for g in genomes]
     skd = torch.from_numpy(sk.view(np.int64)).to(device)
     scd = torch.from_numpy(sc.astype(np.int64)).to(device)
     n = skd.numel()
-    hist = torch.zeros(G * 64, dtype=torch.int64, device=device)
+    hist = torch.zeros(G * H, dtype=torch.int64, device=device)
     step = 8192
     for g0 in range(0, G, step):
-        blk = genomes[g0:g0 + step]
-        k = torch.from_numpy(np.concatenate(
-            [g.genome_kmers for g in blk]).view(np.int64)).to(device)
-        sizes = torch.tensor([g.genome_kmers.size for g in blk],
-                             device=device)
+        blk = kmers[g0:g0 + step]
+        k = torch.from_numpy(np.concatenate(blk).view(np.int64)).to(device)
+        sizes = torch.tensor([a.size for a in blk], device=device)
         gid = torch.repeat_interleave(
             torch.arange(g0, g0 + len(blk), device=device), sizes)
         idx = torch.searchsorted(skd, k)
         idxc = idx.clamp(max=max(n - 1, 0))
         cnt = torch.where((idx < n) & (skd[idxc] == k), scd[idxc], 0)
         live = cnt > 0
-        hist += torch.bincount(gid[live] * 64 + cnt[live].clamp(max=63),
-                               minlength=G * 64)
-    return hist.view(G, 64).cpu().numpy()
+        hist += torch.bincount(gid[live] * H + cnt[live].clamp(max=H - 1),
+                               minlength=G * H)
+    return hist.view(G, H).cpu().numpy()
 
 
 def _check_outputs(dc, samples, tsv):
@@ -1030,6 +1065,372 @@ def _small_db_kernels(dc, smp, paths, launches, sk_launches, record):
            n_launches=sk_launches["B7_seed"])
 
 
+# ---- the one-shot device pipeline ----------------------------------------
+
+def _b7_survivors(batches, lens, cap=None):
+    """(sorted distinct survivor keys uint64, their counts, each read's
+    survivor count) of read batches through B7, keeping each read's first
+    ``cap`` survivors in window order (all of them when None): the exact
+    oracle of the fused kernels' output at that capacity."""
+    import torch
+
+    from sylph_tpu_torch.gpu import pipeline as pl
+    from sylph_tpu_torch.gpu.seeding import seed_packed
+    parts, per_read = [], []
+    for b, n in zip(batches, lens):
+        h, keep = seed_packed(pl._pack_words(b), n, c=C, k=K)
+        if cap is not None:
+            keep = keep & (torch.cumsum(keep, dim=1) <= cap)
+        parts.append(h[keep])
+        per_read.append(keep.sum(dim=1))
+    sk, sc = torch.unique(torch.cat(parts), return_counts=True)
+    return (sk.cpu().numpy().view(np.uint64), sc.cpu().numpy(),
+            torch.cat(per_read))
+
+
+def _stats_close(name, got, want):
+    """Integer and boolean stats fields equal, float fields to rtol 1e-5
+    (f32 pow, exp and gammainc differ between devices in the last bits)."""
+    import torch
+    for f in ("contained", "n_inliers", "median_cov", "lam_valid", "valid"):
+        if not torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu()):
+            _fail(f"{name}: stats field {f} differs")
+    for f in ("naive_ani", "final_ani", "final_cov", "lam", "mean_cov"):
+        a, b = getattr(got, f).cpu(), getattr(want, f).cpu()
+        if a.dtype != torch.float32 or not torch.allclose(
+                a, b, rtol=1e-5, atol=0.0, equal_nan=True):
+            _fail(f"{name}: stats field {f} beyond rtol 1e-5")
+
+
+def _timed(fn):
+    """(fn's result, host seconds to the end of its device work)."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _pipeline_run(batches, lens, ikey, gids, nk, live, kw,
+                  flat=lambda p: p.reshape(-1)):
+    """sketch_batch per batch, condense_stream (B8), finish_profile, with
+    every launch count set to 0 just before and read just after. Each
+    batch's keys enter the stream read by read (``flat``; B9's
+    read-per-column layout is transposed first, see check (s)). Returns
+    (hist, stats, the per-batch keys, launches, stage seconds)."""
+    import torch
+
+    from sylph_tpu_torch.gpu import _cuda
+    from sylph_tpu_torch.gpu import pipeline as pl
+    from sylph_tpu_torch.gpu.bucket_fill import condense_stream
+
+    _cuda.reset_launches()
+    parts, sketch_s = _timed(lambda: [pl.sketch_batch(b, n, c=C, k=K)[0]
+                                      for b, n in zip(batches, lens)])
+    cond, condense_s = _timed(lambda: condense_stream(
+        torch.cat([flat(p) for p in parts]), live))
+    (hist, st), finish_s = _timed(lambda: pl.finish_profile(
+        cond, ikey, gids, nk, **kw))
+    launches = dict(_cuda.LAUNCHES)
+    stages = dict(sketch_s=sketch_s, condense_s=condense_s,
+                  finish_s=finish_s, stream_slots=int(cond.numel()),
+                  live=int((cond != -1).sum()))
+    return hist, st, parts, launches, stages
+
+
+def _profile_phase(a, dev):
+    """(q) bench.py's profile config on the card through the one-shot
+    pipeline, and (s) the same batches under SYLPH_SEED_T=1 (B9). Returns
+    (one batch, its lengths, (q)'s launches, (s)'s launches)."""
+    import torch
+
+    from sylph_tpu_torch.gpu import pipeline as pl
+    from sylph_tpu_torch.gpu.bucket_fill import condense_stream
+    from sylph_tpu_torch.gpu.containment import build_host_index
+    from sylph_tpu_torch.gpu.seed_pack import cap_rows_t
+    from sylph_tpu_torch.gpu.stats import stats_from_histograms
+
+    N, L = PROFILE_READS, PROFILE_LEN
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(a.seed + 6)
+    t0 = time.perf_counter()
+    batches = [torch.randint(0, 4, (N, L), generator=gen, dtype=torch.uint8,
+                             device=dev) for _ in range(PROFILE_BATCHES)]
+    lens = [torch.full((N,), L, dtype=torch.int32, device=dev)] * len(batches)
+    sk, sc, per_read = _b7_survivors(batches, lens)
+    rng = np.random.default_rng(a.seed + 6)
+    thr = ((1 << 64) - 1) // C
+    half = PROFILE_KPG // 2
+    genomes = [np.concatenate([
+        sk[rng.choice(sk.size, size=half, replace=False)],
+        rng.integers(0, thr, size=PROFILE_KPG - half, dtype=np.uint64)])
+        for _ in range(PROFILE_GENOMES)]
+    idx = build_host_index(genomes)
+    ikey, gids, nk = (torch.from_numpy(x).to(dev) for x in (
+        idx.keys, idx.genome_ids, idx.n_kmers))
+    want = _oracle_hist(genomes, sk, sc, dev, H=PROFILE_H)
+    want[:, 0] = idx.n_kmers - want[:, 1:].sum(axis=1)   # not contained
+    over = {c: int((per_read > c).sum()) for c in (PIPE_CAP, 16)}
+    setup_s = time.perf_counter() - t0
+    kw = dict(k=K, n_genomes=PROFILE_GENOMES, n_buckets=PROFILE_H,
+              min_ani=0.5)
+
+    # (q): B6 per batch, B8, the merge join and the statistics, once to
+    # warm up (first-use allocations, the f32 gammainc kernel's runtime
+    # compile), then measured
+    _pipeline_run(batches[:2], lens, ikey, gids, nk, 1.0, kw)
+    hist, st, parts, q_launches, stages = _pipeline_run(
+        batches, lens, ikey, gids, nk, (L - K + 1) / C / PIPE_CAP, kw)
+    if q_launches["B6_seed_pack"] != len(batches) or \
+            q_launches["B8_repack2"] <= 0:
+        _fail(f"(q) B6 {q_launches['B6_seed_pack']} and B8 "
+              f"{q_launches['B8_repack2']} launches for {len(batches)} "
+              "batches")
+    if stages["live"] != int(sc.sum()) or \
+            not np.array_equal(hist.cpu().numpy(), want):
+        _fail(f"(q) {stages['live']} of {int(sc.sum())} survivors kept "
+              f"({over[PIPE_CAP]} reads past {PIPE_CAP}); the [G, "
+              f"{PROFILE_H}] histogram differs from the B7 oracle in "
+              f"{int((hist.cpu().numpy() != want).sum())} bins")
+    h1, s1 = pl.profile_step(batches[0], lens[0], ikey, gids, nk, c=C, **kw)
+    k0, n0 = pl.sketch_batch(batches[0], lens[0], c=C, k=K)
+    h2, s2 = pl.finish_profile(k0, ikey, gids, nk, **kw)
+    kp, npk = pl.sketch_batch_packed(pl._pack_words(batches[0]), lens[0],
+                                     c=C, k=K)
+    if not (torch.equal(h1, h2) and torch.equal(kp, k0)
+            and int(npk) == int(n0) == int((k0 != -1).sum())):
+        _fail("(q) profile_step or sketch_batch_packed differs from "
+              "sketch_batch + finish_profile")
+    _stats_close("(q) profile_step", s1, s2)
+    smp = torch.stack([p.reshape(-1) for p in parts[:MULTISAMPLE]])
+    hb, sb = pl.finish_profile_batched(smp, ikey, gids, nk, **kw)
+    for i in range(MULTISAMPLE):
+        hs, ss = pl.finish_profile(smp[i], ikey, gids, nk, **kw)
+        if not torch.equal(hb[i], hs):
+            _fail(f"(q) finish_profile_batched row {i} differs")
+        _stats_close(f"(q) finish_profile_batched row {i}",
+                     type(sb)(*[f[i] for f in sb]), ss)
+    _stats_close("(q) card stats vs CPU", st, stats_from_histograms(
+        hist.cpu(), nk.cpu(), k=K, min_ani=0.5))
+    print(f"check (q): {len(batches)} batches of [{N}, {L}] through B6 "
+          f"({q_launches['B6_seed_pack']} launches) and B8 "
+          f"({q_launches['B8_repack2']}); [G, {PROFILE_H}] hist == B7 "
+          f"oracle ({int(want[:, 1:].sum())} hits, {stages['live']} "
+          "survivors); profile_step, sketch_batch_packed, "
+          f"finish_profile_batched (S = {MULTISAMPLE}) and the CPU stats "
+          "agree")
+    gbp = len(batches) * N * L / 1e9
+    stages.update(
+        setup_s=setup_s, gbp=gbp, sketch_gbp_per_s=gbp / stages["sketch_s"],
+        batched_ms=_cuda_ms(lambda: pl.finish_profile_batched(
+            smp, ikey, gids, nk, **kw), 2),
+        singles_ms=sum(_cuda_ms(lambda r=r: pl.finish_profile(
+            r, ikey, gids, nk, **kw), 2) for r in smp))
+    print("one-shot profile (q): " + json.dumps(stages))
+    del smp, hb, parts
+
+    # (s): the transposed kernel (B9) on the same batches. Its [16, N]
+    # keys hold every read's first survivor in row 0 (about 68% live), the
+    # second in row 1, ...: flattened row by row, as bench.py and the JAX
+    # sharded step flatten them, condense_stream's windows sized by the
+    # mean density (7%) overflow in the first rows; read by read they are
+    # as even as B6's
+    flag = pl._USE_TRANSPOSED_SEED
+    pl._USE_TRANSPOSED_SEED = True
+    cap_t = cap_rows_t(L, C)
+    live_t = (L - K + 1) / C / cap_t
+    try:
+        _pipeline_run(batches[:2], lens, ikey, gids, nk, 1.0, kw,
+                      flat=lambda p: p.t().reshape(-1))
+        hist_t, _st, parts, s_launches, s_stages = _pipeline_run(
+            batches, lens, ikey, gids, nk, live_t, kw,
+            flat=lambda p: p.t().reshape(-1))
+    finally:
+        pl._USE_TRANSPOSED_SEED = flag
+    s_stages["row_major_kept"] = int((condense_stream(torch.cat(
+        [p.reshape(-1) for p in parts]), live_t) != -1).sum())
+    if s_launches["B9_seed_pack_t"] != len(batches) or \
+            s_launches["B6_seed_pack"] != 0:
+        _fail(f"(s) B9 {s_launches['B9_seed_pack_t']} and B6 "
+              f"{s_launches['B6_seed_pack']} launches")
+    cnt = torch.cat([(p != -1).sum(dim=0) for p in parts])
+    reach = {c: int((cnt >= c).sum()) for c in (PIPE_CAP, cap_t)}
+    # B9 keeps each read's first cap_t survivors: held against the B7
+    # oracle cut at that capacity, whatever the reads' survivor counts
+    sk_t, sc_t, _ = _b7_survivors(batches, lens, cap=cap_t)
+    want_t = _oracle_hist(genomes, sk_t, sc_t, dev, H=PROFILE_H)
+    want_t[:, 0] = idx.n_kmers - want_t[:, 1:].sum(axis=1)
+    if s_stages["live"] != int(sc_t.sum()) or \
+            not np.array_equal(hist_t.cpu().numpy(), want_t):
+        _fail(f"(s) {s_stages['live']} of {int(sc_t.sum())} survivors kept;"
+              f" the B9 histogram differs from the B7 oracle cut at {cap_t} "
+              f"in {int((hist_t.cpu().numpy() != want_t).sum())} bins")
+    same_q = bool(torch.equal(hist_t, hist))
+    print(f"check (s): B9 launched {s_launches['B9_seed_pack_t']} times, B6 "
+          f"none; hist == B7 oracle cut at {cap_t} survivors a read "
+          f"(read-major stream), == (q)'s: {same_q}; flattened row by row "
+          f"condense_stream kept {s_stages['row_major_kept']} of "
+          f"{s_stages['live']} survivors; reads reaching {PIPE_CAP} survivors: "
+          f"{reach[PIPE_CAP]}, reaching {cap_t}: {reach[cap_t]} (past "
+          f"{PIPE_CAP} in the B7 oracle: {over[PIPE_CAP]}, past 16: "
+          f"{over[16]})")
+    print("one-shot profile, SYLPH_SEED_T=1 (s): " + json.dumps(s_stages))
+    return batches[0], lens[0], q_launches, s_launches
+
+
+def _gtdb_pipeline_phase(dc, codes):
+    """(r): bench.py's gtdb shape on the main path's grange engine: the
+    main path's 7,158,278 reads packed into [65,536, 256] batches (lengths
+    150, the last batch padded with length-0 rows), sketch_batch (B6) per
+    batch, condense_stream (B8), the occurrence-stream hist_device_stream
+    (folded on the card) and the statistics."""
+    import torch
+
+    from sylph_tpu_torch.gpu import _cuda
+    from sylph_tpu_torch.gpu import pipeline as pl
+    from sylph_tpu_torch.gpu.bucket_fill import condense_stream
+    from sylph_tpu_torch.gpu.grange import fold_stream
+    from sylph_tpu_torch.gpu.stats import stats_from_histograms
+
+    eng = dc._grange
+    dev = dc.device
+    N, L = PROFILE_READS, PROFILE_LEN
+    t0 = time.perf_counter()
+    batches, lens = [], []
+    for s in range(0, codes.shape[0], N):
+        blk = torch.from_numpy(codes[s:s + N]).to(dev)
+        b = torch.zeros((N, L), dtype=torch.uint8, device=dev)
+        b[:blk.shape[0], :READ_LEN] = blk
+        n = torch.zeros(N, dtype=torch.int32, device=dev)
+        n[:blk.shape[0]] = READ_LEN
+        batches.append(b)
+        lens.append(n)
+    sk, sc, per_read = _b7_survivors(batches, lens)
+    genomes = dc._genome_sketches
+    G = len(genomes)
+    want = _oracle_hist(genomes, sk, sc, dev)
+    nk = torch.tensor([g.genome_kmers.size for g in genomes], device=dev)
+    setup_s = time.perf_counter() - t0
+
+    _cuda.reset_launches()
+    out, sketch_s = _timed(lambda: [pl.sketch_batch(b, n, c=C, k=K)
+                                    for b, n in zip(batches, lens)])
+    parts = [keys for keys, _n in out]
+    # every read carries a planted index k-mer, which survives: the live
+    # share is measured (about 1.6 survivors a read, not the 0.6 of random
+    # reads), as bench.py's gtdb config measures it, since capacities
+    # sized below it would drop survivors
+    n_live = int(torch.stack([n for _k, n in out]).sum())
+    cond, condense_s = _timed(lambda: condense_stream(
+        torch.cat([p.reshape(-1) for p in parts]),
+        n_live / (len(parts) * N * PIPE_CAP)))
+    (hist, probe, P), stream_s = _timed(lambda: eng.hist_device_stream(
+        cond))
+    launches = dict(_cuda.LAUNCHES)
+    # the host-side spill list joins the pipeline's own folded stream, as
+    # a caller of the one-shot path would join it, never the oracle's
+    fk, fw = fold_stream(cond)
+    got = eng._fold_heavy(hist.cpu().numpy()) + eng._spill_hist(
+        fk.cpu().numpy().view(np.uint64), fw.cpu().numpy())
+    full = torch.from_numpy(got).to(dev)
+    st, stats_s = _timed(lambda: stats_from_histograms(full, nk, k=K,
+                                                       min_ani=0.95))
+    if launches["B6_seed_pack"] != len(batches) or \
+            launches["B8_repack2"] <= 0:
+        _fail(f"(r) B6 {launches['B6_seed_pack']} and B8 "
+              f"{launches['B8_repack2']} launches for {len(batches)} "
+              "batches")
+    kept = int((cond != -1).sum())
+    if n_live != int(sc.sum()) or kept != n_live:
+        _fail(f"(r) {n_live} survivors sketched, {kept} after condense_stream"
+              f", {int(sc.sum())} in the B7 oracle")
+    if int(probe[0]) != 0 or int(probe[1]) > P:
+        _fail(f"(r) the stream sweep's probe is not exact: "
+              f"{probe.tolist()} with P={P}")
+    if not np.array_equal(got, want):
+        _fail(f"(r) [G, 64] histogram differs from the B7 oracle in "
+              f"{int((got != want).sum())} bins")
+    live = st.contained > 0
+    if not bool(torch.isfinite(st.final_ani[live]).all()):
+        _fail("(r) non-finite ANI for a contained genome")
+    at_cap = sum(int((p[:, PIPE_CAP - 1] != -1).sum()) for p in parts)
+    fold_ms = _cuda_ms(lambda: fold_stream(cond), 3)
+    sweep_ms = _cuda_ms(lambda: eng.hist_device_stream(fk, fw), 3)
+    split = dict(
+        reads=int(codes.shape[0]), batches=len(batches), setup_s=setup_s,
+        sketch_s=sketch_s, condense_s=condense_s,
+        fold_and_sweep_s=stream_s, fold_and_sort_ms=fold_ms,
+        sweep_ms=sweep_ms, stats_s=stats_s, stream_slots=int(cond.numel()),
+        survivors=int(sc.sum()), distinct=int(sk.size), P=P,
+        spilled_slots=int(eng.gidx.spill_kmers.size),
+        reads_at_cap=at_cap,
+        reads_past_cap=int((per_read > PIPE_CAP).sum()),
+        valid_genomes=int(st.valid.sum()))
+    print(f"check (r): {len(batches)} batches through B6 "
+          f"({launches['B6_seed_pack']}) and B8 ({launches['B8_repack2']}),"
+          f" occurrence-stream sweep probe exact, [G, 64] hist == B7 "
+          f"oracle ({int(want[:, 1:].sum())} hits over {G} genomes)")
+    print("one-shot gtdb (r): " + json.dumps(split))
+    return launches
+
+
+def _pipeline_kernels(dev, batch, lens, q_launches, s_launches, record):
+    """B6, B9 and B10 on one [65,536, 256] batch of (q) against their plain
+    versions, plus an overflow case (L = 512, c = 2: more than 128
+    survivors a read) and B10 at k = 15."""
+    import torch
+
+    from sylph_tpu_torch.gpu import seed_pack as sp
+
+    N, L = batch.shape
+    ops = _live_windows(lens, K) * INT32_OPS_PER_WINDOW
+    io = N * L + N * 4
+    bt = batch.t().contiguous()
+    cap_t = sp.cap_rows_t(L, C)
+    cases = (
+        ("B6_seed_pack", ":283", q_launches["B6_seed_pack"], N * PIPE_CAP,
+         lambda: sp.seed_pack(batch, lens, c=C, k=K, lanes=PIPE_CAP),
+         lambda: sp.seed_pack_plain(batch, lens, c=C, k=K, lanes=PIPE_CAP)),
+        ("B6_seed_pack (128 lanes)", ":283", 0, N * 128,
+         lambda: sp.seed_pack(batch, lens, c=C, k=K),
+         lambda: sp.seed_pack_plain(batch, lens, c=C, k=K)),
+        ("B9_seed_pack_t", ":501", s_launches["B9_seed_pack_t"], N * cap_t,
+         lambda: sp.seed_pack_t(bt, lens, c=C, k=K),
+         lambda: sp.seed_pack_t_plain(bt, lens, c=C, k=K)),
+        ("B10_seed_compact", ":183", 0, N * 128,
+         lambda: sp.seed_compact(batch, lens, c=C, k=K),
+         lambda: sp.seed_compact_plain(batch, lens, c=C, k=K)))
+    for name, line, n_launch, out_slots, kern, plain in cases:
+        err = _same(name, (kern(),), (plain(),))
+        record(name, "seed_pack.cu", "sylph_tpu/tpu/pallas_seeding.py"
+               + line, err, _cuda_ms(kern, 20), _cuda_ms(plain, 3),
+               io + out_slots * 8, ops, n_launches=n_launch)
+    print("B9's transpose of the batch (the pipeline's, before B9): "
+          f"{_cuda_ms(lambda: batch.t().contiguous(), 20):.4f} ms")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    ob = torch.randint(0, 4, (4096, 512), generator=gen, dtype=torch.uint8,
+                       device=dev)
+    ol = torch.full((4096,), 512, dtype=torch.int32, device=dev)
+    got = sp.seed_pack(ob, ol, c=2, k=K)
+    _same("B6 overflow", (got,), (sp.seed_pack_plain(ob, ol, c=2, k=K),))
+    _same("B10 overflow", (sp.seed_compact(ob, ol, c=2, k=K),),
+          (sp.seed_compact_plain(ob, ol, c=2, k=K),))
+    obt = ob.t().contiguous()
+    got_t = sp.seed_pack_t(obt, ol, c=2, k=K)
+    _same("B9 overflow", (got_t,), (sp.seed_pack_t_plain(obt, ol, c=2,
+                                                         k=K),))
+    _same("B10 k=15", (sp.seed_compact(batch, lens, c=C, k=15),),
+          (sp.seed_compact_plain(batch, lens, c=C, k=15),))
+    full = int(((got != -1).sum(dim=1) == 128).sum())
+    if full == 0:
+        _fail("B6 overflow case kept no read at 128 survivors")
+    print(f"overflow check: L=512, c=2: {full} of 4096 reads at B6's 128 "
+          f"lanes, up to {int((got_t != -1).sum(dim=0).max())} in B9's "
+          f"{got_t.shape[0]} rows; B6, B9, B10 (and B10 at k=15) "
+          "bit-identical")
+
+
 # ---- kernels against their plain versions --------------------------------
 #
 # A bound counts the work this run's data needs, not the padded shapes: the
@@ -1425,7 +1826,8 @@ def main(argv=None) -> int:
         print(f"generate: {time.perf_counter() - t0:.3f} s "
               f"({GENOMES} genomes x {a.kmers_per_genome} k-mers)")
         t0 = time.perf_counter()
-        reads, abundant, n_bases = _make_reads(a, work, kmers, picks)
+        reads, abundant, n_bases, read_codes = _make_reads(a, work, kmers,
+                                                           picks)
         del kmers
         print(f"generate reads: {time.perf_counter() - t0:.3f} s "
               f"({n_bases} bases, {os.path.getsize(reads)} bytes bgzf)")
@@ -1442,6 +1844,9 @@ def main(argv=None) -> int:
         cohort = {samples[n][0]: loaded[n][3] for n in ("sample", "deep")}
         cohort[host_path] = host_tbl[2]
         c_launches = _cohort_phase(dc, db, cohort, tsv, per)
+        batch, blens, q_launches, s_launches = _profile_phase(a, dc.device)
+        _gtdb_pipeline_phase(dc, read_codes)
+        del read_codes
         small_db, asm_paths, sk_launches = _sketch_phase(a, work)
         genomes, small = _merge_phase(a, work, small_db)
         _merge_cohort_phase(a, work, small_db, genomes, small)
@@ -1450,6 +1855,8 @@ def main(argv=None) -> int:
         _batched_kernels(dc, [loaded["sample"][1:3], loaded["deep"][1:3],
                               host_tbl[:2]], c_launches, record)
         _small_db_kernels(bdc, bsmp, asm_paths, b_launches, sk_launches,
+                          record)
+        _pipeline_kernels(dc.device, batch, blens, q_launches, s_launches,
                           record)
     finally:
         shutil.rmtree(work, ignore_errors=True)

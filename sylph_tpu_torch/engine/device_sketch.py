@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..gpu.bucket_fill import condense_stream
-from ..gpu.seeding import seed_packed
+from ..gpu.seeding import compact_by_position, seed_packed
 from ..io.fastx import ParsedFastx
 from ..kmer.seeding import fmh_seeds_np
 
@@ -56,37 +56,12 @@ def _pack16_rows(codes_u8: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(b).view("<u4").astype(np.uint32, copy=False)
 
 
-def _compact_by_position(hash_: torch.Tensor, keep: torch.Tensor,
-                         cap: int, want_lanes: bool = False):
-    """Per-row compaction that PRESERVES position order: each row's first
-    ``cap`` kept hashes, left-packed, pad -1 (the JAX package's sort by
-    lane key). A per-row rank by cumsum and one scatter; dropped entries
-    all land in a spare column, which is cut off. With ``want_lanes`` the
-    survivors' window lanes come back too (pad -1), as genome sketching
-    needs positions for the spacing filter."""
-    R, W = hash_.shape
-    kp = keep.to(torch.int64)
-    rank = torch.cumsum(kp, dim=1) - kp
-    sel = keep & (rank < cap)
-    col = torch.where(sel, rank, cap)
-    out = torch.full((R, cap + 1), -1, dtype=torch.int64,
-                     device=hash_.device)
-    out.scatter_(1, col, torch.where(sel, hash_, -1))
-    if not want_lanes:
-        return out[:, :cap]
-    lane = torch.arange(W, device=hash_.device).expand(R, W)
-    lanes = torch.full((R, cap + 1), -1, dtype=torch.int64,
-                       device=hash_.device)
-    lanes.scatter_(1, col, torch.where(sel, lane, -1))
-    return out[:, :cap], lanes[:, :cap]
-
-
 def _seed_rows(packed: torch.Tensor, lens: torch.Tensor, c: int, k: int,
                bucket_len: int) -> torch.Tensor:
     """B7 + per-row compaction: [R, cap] survivors, position order."""
     hash_, keep = seed_packed(packed, lens, c=c, k=k)
     W = bucket_len - k + 1
-    return _compact_by_position(hash_[:, :W], keep[:, :W], _row_cap(W, c))
+    return compact_by_position(hash_[:, :W], keep[:, :W], _row_cap(W, c))
 
 
 def _seed_packed(packed: torch.Tensor, lens: torch.Tensor, c: int, k: int,
@@ -241,8 +216,8 @@ def genome_survivor_positions(px: ParsedFastx, c: int, k: int,
         packed, lens_d = _upload_batch(*_gather_rows(
             padded, px.starts[bc] + bo, rlen[s:s + _GROWS], _GBLOCK), device)
         hash_, keep = seed_packed(packed, lens_d, c=c, k=k)
-        hrows, lanes = _compact_by_position(hash_[:, :W], keep[:, :W], cap,
-                                            want_lanes=True)
+        hrows, lanes = compact_by_position(hash_[:, :W], keep[:, :W], cap,
+                                           want_lanes=True)
         row, col = (hrows != -1).nonzero(as_tuple=True)
         got = torch.stack([row, lanes[row, col], hrows[row, col]]).cpu()
         row, lane, h = got.numpy()

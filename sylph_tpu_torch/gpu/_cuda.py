@@ -24,7 +24,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("fill", "join", "repack", "seed")
+SOURCES = ("fill", "join", "repack", "seed", "seed_pack")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -32,7 +32,8 @@ LAUNCHES = {"B1_fill": 0, "B2_join_codes_compact": 0, "B3_repack": 0,
             "B4_join_codes": 0, "B5_join_counts": 0,
             "B5p_bucket_join": 0, "B7_seed": 0, "B8_repack2": 0,
             "B2b_join_codes_compact_batched": 0,
-            "B4b_join_codes_batched": 0, "B5b_join_counts_batched": 0}
+            "B4b_join_codes_batched": 0, "B5b_join_counts_batched": 0,
+            "B6_seed_pack": 0, "B9_seed_pack_t": 0, "B10_seed_compact": 0}
 BUILD_LOG = {}                 # source name -> nvcc/ptxas output
 BUILD_SECONDS = {}             # source name -> wall seconds of its nvcc
 
@@ -130,6 +131,10 @@ _SIGNATURES = {                 # C entry point -> argument types
     "repack_launch": [_P] + [_I64] * 4 + [_P, _P],
     "repack64_launch": [_P] + [_I64] * 4 + [_P, _P],
     "seed_launch": [_P, _P, _I64, _I32, _I32, ctypes.c_uint64, _P, _P, _P],
+    "seed_pack_launch": [_P, _P, _I64, _I32, _I32, ctypes.c_uint64, _I32,
+                         _I32, _P, _P],
+    "seed_pack_t_launch": [_P, _P, _I64, _I32, _I32, ctypes.c_uint64, _I32,
+                           _P, _P],
 }
 
 

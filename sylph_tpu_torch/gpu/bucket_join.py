@@ -19,8 +19,9 @@ compare kernel's wrappers with their plain versions:
 
 which launch csrc/join.cu on a CUDA tensor and run the plain version only
 for a tensor on the CPU; and the bucket regime's layout
-(``build_bucketed_index``) and its per-chunk counts in chunk order
-(``bucket_join_counts``).
+(``build_bucketed_index``), its per-chunk counts in chunk order
+(``bucket_join_counts``) and the one-shot pipeline's per-genome histograms
+(``build_gid_grid``, ``bucket_join_hist``).
 """
 
 import ctypes
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from . import _cuda
+from .containment import genome_hist
 from .keys import HIST_H, KEY_PAD, SENT, key_hi
 
 _MODE_COUNTS, _MODE_CODES, _MODE_COMPACT = 0, 1, 2
@@ -446,3 +448,29 @@ def bucket_join_counts(bidx: BucketedIndex, skey: torch.Tensor,
                               B=bidx.n_buckets,
                               CS=sample_cs(t_real, bidx.n_buckets))
     return grid.view(-1)[bidx.src]
+
+
+def build_gid_grid(bidx: BucketedIndex, gids, n_genomes: int) -> torch.Tensor:
+    """[B, CI] int32 genome id of every slot of a bucketed index, on the
+    device ``bidx`` lies on; slots holding no k-mer get ``n_genomes``.
+    ``gids[i]`` is the genome of the i-th k-mer given to
+    build_bucketed_index: ids go through the recorded slots (``src``), as
+    the port buckets live k-mers only (the JAX package maps its padded
+    rows through ``pos``)."""
+    grid = torch.full((bidx.n_buckets * bidx.key.shape[1],), n_genomes,
+                      dtype=torch.int32, device=bidx.src.device)
+    grid[bidx.src] = torch.as_tensor(gids, dtype=torch.int32,
+                                     device=grid.device)
+    return grid.view(bidx.n_buckets, -1)
+
+
+def bucket_join_hist(ikey: torch.Tensor, gid_grid: torch.Tensor,
+                     skey: torch.Tensor, sw: torch.Tensor, *, width: int,
+                     B: int, CS: int, n_genomes: int,
+                     n_buckets: int) -> torch.Tensor:
+    """[G, H] int32 per-genome multiplicity histograms through the bucketed
+    join (B5' with B1 as its fill on a CUDA tensor): the per-slot counts of
+    ``bucket_join_device``, clamped to H - 1, binned by the slots' genome
+    ids (``build_gid_grid``); slots with an id >= G fall out."""
+    return genome_hist(gid_grid, bucket_join_device(
+        ikey, skey, sw, width=width, B=B, CS=CS), n_genomes, n_buckets)

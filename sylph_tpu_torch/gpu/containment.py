@@ -1,7 +1,7 @@
 """Merge-regime containment and the flattened host index (counterpart of
-sylph_tpu/tpu/containment.py::merge_join_counts and _bincount, of the
-vmapped join of engine/device_exec.py, and of
-tpu/pipeline.py::HostIndex/build_host_index).
+sylph_tpu/tpu/containment.py::merge_join_counts, merge_join_hist,
+compact_rows and _bincount, of the vmapped join of engine/device_exec.py,
+and of tpu/pipeline.py::HostIndex/build_host_index).
 
 The JAX package joins index and sample with one sort of their union and
 run totals of the sample weights, built from sorts and scans because
@@ -19,6 +19,10 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from .keys import KEY_PAD, from_pair_np
+
+_INT64_MIN = -(1 << 63)
 
 
 class HostIndex(NamedTuple):
@@ -45,6 +49,39 @@ def build_host_index(kmer_arrays: List[np.ndarray],
     gids = np.full(M, G, np.int32)
     gids[:total] = np.repeat(np.arange(G, dtype=np.int32), sizes)
     return HostIndex(keys, gids, sizes, G)
+
+
+def host_index_from_jax(hi: np.ndarray, lo: np.ndarray,
+                        genome_ids: np.ndarray, n_kmers: np.ndarray,
+                        n_genomes: int) -> HostIndex:
+    """The port's HostIndex of the JAX package's (sylph_tpu/tpu/pipeline.py
+    HostIndex fields): (hi, lo) uint32 pairs become int64 keys; its pad rows
+    are (0, 0) with id n_genomes, the port's pads too."""
+    return HostIndex(from_pair_np(hi, lo),
+                     np.asarray(genome_ids, np.int32),
+                     np.asarray(n_kmers, np.int32), int(n_genomes))
+
+
+def compact_rows(hash_: torch.Tensor, keep: torch.Tensor, row: int,
+                 cap: int) -> torch.Tensor:
+    """Fixed-capacity compaction of surviving hashes: the window stream cut
+    into rows of ``row`` entries (the tail padded with dropped windows),
+    dropped windows masked to the pad, each row sorted ascending in uint64
+    order with pads last, the first ``cap`` columns kept -> [ceil(n/row),
+    cap] int64. A row with more than ``cap`` survivors drops its largest.
+
+    The JAX package sorts (hi, lo) pairs with the (SENT, SENT) pad last;
+    in int64 the pad -1 sorts first and, for c = 1, real hashes may have the
+    top bit set, so the rows sort on ``key ^ INT64_MIN`` (uint64 order, the
+    pad becoming INT64_MAX) and flip back."""
+    flat = torch.where(keep.reshape(-1), hash_.reshape(-1), KEY_PAD)
+    n = flat.numel()
+    rows = -(-n // row)
+    m = torch.full((rows * row,), KEY_PAD, dtype=torch.int64,
+                   device=flat.device)
+    m[:n] = flat
+    s = torch.sort((m ^ _INT64_MIN).view(rows, row), dim=1).values
+    return s[:, :cap] ^ _INT64_MIN
 
 
 def merge_join_counts(idx_key: torch.Tensor, smp_key: torch.Tensor,
@@ -80,6 +117,30 @@ def merge_join_counts_batched(idx_key: torch.Tensor, smp_keys: torch.Tensor,
     check (o))."""
     return torch.stack([merge_join_counts(idx_key, k, w)
                         for k, w in zip(smp_keys, smp_weights)])
+
+
+def merge_join_hist(idx_key: torch.Tensor, gids: torch.Tensor,
+                    smp_key: torch.Tensor, *, n_genomes: int,
+                    n_buckets: int) -> torch.Tensor:
+    """[G, H] int32 per-genome multiplicity histograms of a sample
+    occurrence stream (``smp_key``, any order and shape, repeats encode
+    multiplicity, -1 pads) against the index (``idx_key`` [M], ``gids``
+    [M], pad rows with id >= G): hist[g, j] counts genome g's k-mers seen j
+    times in the sample, j clamped to H - 1 (JAX merge_join_hist)."""
+    return genome_hist(gids, merge_join_counts(idx_key, smp_key),
+                       n_genomes, n_buckets)
+
+
+def genome_hist(gids: torch.Tensor, counts: torch.Tensor, n_genomes: int,
+                n_buckets: int) -> torch.Tensor:
+    """[G, H] int32: per index slot, its genome id and its sample count
+    (same shapes) -> hist[g, j] = slots of genome g counted j times, j
+    clamped to H - 1; slots with an id >= G fall out."""
+    G, H = n_genomes, n_buckets
+    g = gids.to(torch.int64)
+    seg = torch.where(g < G, g * H + counts.to(torch.int64).clamp(max=H - 1),
+                      G * H)
+    return _bincount(seg, G * H + 1)[:G * H].view(G, H).to(torch.int32)
 
 
 def _bincount(seg: torch.Tensor, n_bins: int) -> torch.Tensor:

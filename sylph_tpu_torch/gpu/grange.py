@@ -508,6 +508,19 @@ def _chunk_hist_lossless(ikey, gid_grid, skey, sw, base: int, *,
     return _bincount(seg, G * H + 1)
 
 
+def fold_stream(keys: torch.Tensor):
+    """(sorted distinct keys int64, uint8 weights) of an occurrence stream
+    of int64 keys (any shape and order, -1 pads anywhere) on its device:
+    the reference's kmer_counts multiplicity map (sylph
+    src/sketch.rs:930-939). Only live keys enter the sort (the -1 pad would
+    sort first, where the JAX SENT sorts last); weights clamp at H-1
+    losslessly, as in ``upload_sample``."""
+    flat = keys.reshape(-1)
+    live = torch.sort(flat[flat != KEY_PAD]).values
+    skey, cnt = torch.unique_consecutive(live, return_counts=True)
+    return skey, cnt.clamp(max=HIST_H - 1).to(torch.uint8)
+
+
 def _quantize_p(want: float, t=None) -> int:
     """Per-chunk slice length: ``want`` rounded up to a quarter-octave step
     (multiple of 2048), capped by ``t`` when given."""
@@ -668,21 +681,29 @@ class GRangeEngine:
         se = torch.stack((starts, ends), dim=1).cpu().numpy()
         return [(int(s), int(e)) for s, e in se]
 
-    def hist_device_stream(self, skey: torch.Tensor, w_dev: torch.Tensor,
+    def hist_device_stream(self, skey: torch.Tensor,
+                           w_dev: Optional[torch.Tensor] = None,
                            n_matches: Optional[int] = None):
         """All-device histogram of a SORTED unique sample (``skey`` int64
         [n], ``w_dev`` its weights): chunk offsets on the device, per-chunk
         slices gathered on the device, nothing crosses to the host.
 
+        With ``w_dev`` None, ``skey`` is an occurrence stream instead (any
+        shape and order, repeats encode multiplicity, -1 pads anywhere): it
+        is folded on the device first (``fold_stream``), as the JAX
+        package folds its sorted stream (sylph_tpu/tpu/grange.py:1142).
+
         Returns (hist [g_eff*H+1] device int64, probe, P): ``probe`` is a
         device int64 [2] of (summed conservation differences, longest
         chunk slice); the histogram is exact iff probe[0] == 0 and
         probe[1] <= P. The slice length P and the cell capacity are sized
-        from the sample's mean per chunk, and the code compaction from an
-        estimated match count (``n_matches``, else twice the sample), not
-        from the measured slices, so no fetch gates the dispatch; a
-        violation shows in the probe and callers take the per-chunk path
-        instead."""
+        from the sample's mean per chunk (after the fold, the distinct
+        keys), and the code compaction from an estimated match count
+        (``n_matches``, else twice the sample), not from the measured
+        slices, so no fetch gates the dispatch; a violation shows in the
+        probe and callers take the per-chunk path instead."""
+        if w_dev is None:
+            skey, w_dev = fold_stream(skey)
         gidx = self.gidx
         G = self._GE
         n_chunks = len(gidx.chunk_keys)

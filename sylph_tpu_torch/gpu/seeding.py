@@ -119,6 +119,31 @@ def seed_hashes(bases: torch.Tensor, lengths: torch.Tensor, *, c: int,
     return h, keep
 
 
+def compact_by_position(hash_: torch.Tensor, keep: torch.Tensor, cap: int,
+                        want_lanes: bool = False):
+    """Per-row compaction that PRESERVES position order: each row's first
+    ``cap`` kept hashes, left-packed, pad -1 (the JAX package's sort by
+    lane key). A per-row rank by cumsum and one scatter; dropped entries
+    all land in a spare column, which is cut off. With ``want_lanes`` the
+    survivors' window lanes come back too (pad -1), as genome sketching
+    needs positions for the spacing filter."""
+    R, W = hash_.shape
+    kp = keep.to(torch.int64)
+    rank = torch.cumsum(kp, dim=1) - kp
+    sel = keep & (rank < cap)
+    col = torch.where(sel, rank, cap)
+    out = torch.full((R, cap + 1), -1, dtype=torch.int64,
+                     device=hash_.device)
+    out.scatter_(1, col, torch.where(sel, hash_, -1))
+    if not want_lanes:
+        return out[:, :cap]
+    lane = torch.arange(W, device=hash_.device).expand(R, W)
+    lanes = torch.full((R, cap + 1), -1, dtype=torch.int64,
+                       device=hash_.device)
+    lanes.scatter_(1, col, torch.where(sel, lane, -1))
+    return out[:, :cap], lanes[:, :cap]
+
+
 def seed_packed_plain(packed: torch.Tensor, lengths: torch.Tensor, *,
                       c: int, k: int):
     """Plain version of B7: (hash int64, keep bool), each [N, L], from the

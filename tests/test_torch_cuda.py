@@ -406,3 +406,104 @@ def test_small_db_engine_on_card_matches_cpu(cuda, regime, monkeypatch):
         a, b = on_card.genome_covs(gi, sk), on_cpu.genome_covs(gi, sk)
         np.testing.assert_array_equal(a[0], b[0])
         assert a[1] == b[1]
+
+
+# ---- the one-shot pipeline: B6, B9, B10 ------------------------------------
+
+def _code_batch(seed, N, L, k):
+    """Random reads; rows 0-3 of length L, 0, k - 1 and past L; rows 4-7
+    ATAT... repeats, whose every 31-mer window hashes below u64::MAX / 9."""
+    rng = np.random.default_rng(seed)
+    bases = rng.integers(0, 4, size=(N, L)).astype(np.uint8)
+    bases[4:8] = np.resize(np.array([0, 3], np.uint8), L)
+    lens = rng.integers(0, L + 1, size=N).astype(np.int32)
+    lens[:8] = (L, 0, k - 1, L + 40, L, L, L, L)[:min(N, 8)]
+    return torch.from_numpy(bases), torch.from_numpy(lens)
+
+
+@pytest.mark.parametrize("N,L,c,k", [
+    (512, 256, 200, 31), (100, 256, 20, 31), (256, 512, 2, 31),
+    (8, 128, 5, 17), (1024, 384, 1, 24), (256, 256, 9, 31)])
+def test_seed_pack_matches_plain(cuda, N, L, c, k):
+    """B6 (at 128 lanes and at the pipeline's cap) and B10 against their
+    plain versions: N below one 256-row block, more than 128 survivors a
+    read (c = 2, c = 1, the ATAT reads at c = 9), lengths of 0, below k
+    and past L."""
+    from sylph_tpu_torch.gpu import seed_pack as sp
+    bases, lens = _code_batch(N + L + k, N, L, k)
+    bd, ld = bases.to(cuda), lens.to(cuda)
+    _equal((sp.seed_pack(bd, ld, c=c, k=k),),
+           (sp.seed_pack_plain(bases, lens, c=c, k=k),))
+    cap = sp.compact_cap(L, c)
+    _equal((sp.seed_pack(bd, ld, c=c, k=k, lanes=cap),),
+           (sp.seed_pack_plain(bases, lens, c=c, k=k, lanes=cap),))
+    _equal((sp.seed_compact(bd, ld, c=c, k=k),),
+           (sp.seed_compact_plain(bases, lens, c=c, k=k),))
+    if c <= 2 or c == 9:
+        assert int((sp.seed_pack(bd, ld, c=c, k=k) != -1).sum(1).max()) \
+            == 128
+
+
+@pytest.mark.parametrize("k", [9, 15])
+def test_seed_compact_short_k_matches_plain(cuda, k):
+    from sylph_tpu_torch.gpu import seed_pack as sp
+    bases, lens = _code_batch(k, 300 - 44, 256, k)
+    _equal((sp.seed_compact(bases.to(cuda), lens.to(cuda), c=7, k=k),),
+           (sp.seed_compact_plain(bases, lens, c=7, k=k),))
+
+
+@pytest.mark.parametrize("N,L,c,k", [
+    (1024, 256, 200, 31), (100, 256, 20, 31), (64, 512, 2, 31),
+    (64, 256, 9, 31), (8, 40, 3, 21)])
+def test_seed_pack_t_matches_plain(cuda, N, L, c, k):
+    """B9 against its plain version: N below one 512-column block, the
+    ATAT reads past cap_rows (c = 9: 226 survivors, 128 rows), lengths of
+    0, below k and past L."""
+    from sylph_tpu_torch.gpu import seed_pack as sp
+    bases, lens = _code_batch(N + L, N, L, k)
+    bt = bases.t().contiguous()
+    got = sp.seed_pack_t(bt.to(cuda), lens.to(cuda), c=c, k=k)
+    _equal((got,), (sp.seed_pack_t_plain(bt, lens, c=c, k=k),))
+    if c == 9:
+        assert int((got != -1).sum(0).max()) == sp.cap_rows_t(L, c) == 128
+
+
+def test_sketch_batch_on_card_matches_cpu(cuda, monkeypatch):
+    """sketch_batch and profile_step on the card equal the CPU run in each
+    branch: B6 (L = 256), B9 (SYLPH_SEED_T), the fallback with B7 seeding
+    (L = 256, k = 15) and with the torch seeding (L = 100)."""
+    from sylph_tpu_torch.gpu import _cuda
+    from sylph_tpu_torch.gpu import pipeline as pl
+    from sylph_tpu_torch.gpu.containment import build_host_index
+    rng = np.random.default_rng(5)
+    bases, lens = _code_batch(6, 512, 256, 31)
+    pool = rng.integers(0, (1 << 64) // 20, size=4000, dtype=np.uint64)
+    idx = build_host_index([rng.choice(pool, size=300) for _ in range(6)])
+    for L, k, t in ((256, 31, False), (256, 31, True), (256, 15, False),
+                    (100, 31, False)):
+        monkeypatch.setattr(pl, "_USE_TRANSPOSED_SEED", t)
+        b, n = bases[:, :L].contiguous(), lens.clamp(max=L)
+        _cuda.reset_launches()
+        got, gn = pl.sketch_batch(b.to(cuda), n.to(cuda), c=20, k=k)
+        want, wn = pl.sketch_batch(b, n, c=20, k=k, device="cpu")
+        _equal((got, gn), (want, wn))
+        kname = (None if L % 128 else "B9_seed_pack_t" if t
+                 else "B6_seed_pack" if k > 16 else "B7_seed")
+        if kname:
+            assert _cuda.LAUNCHES[kname] == 1
+        assert sum(_cuda.LAUNCHES.values()) == (kname is not None)
+        # the survivors of the CPU run, planted in the index
+        keys = idx.keys.copy()
+        live = want[want != -1].numpy()
+        keys[:min(live.size, 600)] = live[:600]
+        kw = dict(c=20, k=k, n_genomes=6, n_buckets=256)
+        h, st = pl.profile_step(b.to(cuda), n.to(cuda), keys,
+                                idx.genome_ids, idx.n_kmers, **kw)
+        hw, sw = pl.profile_step(b, n, keys, idx.genome_ids, idx.n_kmers,
+                                 device="cpu", **kw)
+        _equal((h,), (hw,))
+        assert int(hw[:, 1:].sum()) > 0
+        for f in ("contained", "n_inliers", "median_cov", "valid"):
+            _equal((getattr(st, f),), (getattr(sw, f),))
+        torch.testing.assert_close(st.final_ani.cpu(), sw.final_ani,
+                                   rtol=1e-5, atol=0)
