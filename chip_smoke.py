@@ -98,6 +98,23 @@ and drives the port's main path once, at database scale:
      256] shape, at L=512 with c=2 (more than 128 survivors a read), and
      B10 at k=15.
 
+  7. Each run with the launch counts set to 0 just before it and read just
+     after: (t) the row repacks at the shapes of their JAX roles: B11
+     (gpu/seeding.py::repack_rows) condenses the survivor stream of one
+     [65,536, 256] batch of the real reads at B8's first (row, cap), B12
+     (repack1_rows) chunk 0's column-major code stream at B3's; each
+     launched and bit-identical to its plain version, at a 128-only
+     geometry too, and B11 at cap 128 loses survivors visibly;
+     (u) ``sylph_tpu_torch.kbench``'s table in-process (every microkernel
+     of csrc/kbench.cu and the real B6/B9 lines, each bit-identical to its
+     plain version; printed as one JSON line before the kernels line);
+     (v) the grange layout cache: ``profile bucket.syldb bsample.sylsp``
+     twice with SYLPH_GRANGE_CACHE set and the grange regime forced
+     (GRANGE_MIN lowered for the phase): the first call builds and saves
+     the layout, the second loads it; both TSVs equal (l)'s, the loaded
+     layout equals the built one field by field, and the stage split shows
+     the build, save and load seconds. Each phase prints its seconds.
+
 Any failed check raises and the script exits non-zero. The last lines are
 the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -934,7 +951,8 @@ def _merge_cohort_phase(a, work, db, genomes, small):
 
 def _bucket_phase(a, work):
     """(l) and (m): profile against a generated database in the bucket
-    regime. Returns (engine, the loaded sample, launches)."""
+    regime. Returns (engine, the loaded sample, launches, (database,
+    sample, TSV) paths)."""
     from sylph_tpu_torch.core.types import GenomeSketch
     from sylph_tpu_torch.io import sylformat
 
@@ -973,7 +991,7 @@ def _bucket_phase(a, work):
     print(f"check (m): B1 and B5' launched once per chunk ({n_chunks})")
     print("bucket profile: " + json.dumps(dict(wall_s=wall,
                                                **stages.split())))
-    return dc, smp, launches
+    return dc, smp, launches, (db, spath, tsv)
 
 
 def _bucket_vs_merge(dc, smp):
@@ -1577,6 +1595,7 @@ def _kernels(dc, loaded, launches, reads):
     got = bf.repack1_flat(stream, row=row, cap=cap)
     want = bf.repack1_flat_plain(stream, row=row, cap=cap)
     err = _same("B3_repack", (got,), (want,))
+    shared = {"codes": (stream, row, cap)}
     live = stream != SENT
     record("B3_repack", "repack.cu", "sylph_tpu/tpu/bucket_fill.py:166",
            err, _cuda_ms(lambda: bf.repack1_flat(stream, row=row, cap=cap),
@@ -1643,8 +1662,8 @@ def _kernels(dc, loaded, launches, reads):
         _fail("CAPR overflow was not detected (n_live == n_comp)")
     print(f"overflow checks: CS=1 fill lost weight {w_lost}; CAPR={capr} "
           f"kept {n_comp} of {int(got[1])} live codes")
-    _seed_kernels(dc.device, reads, record)
-    return rows, record
+    shared["keys"] = _seed_kernels(dc.device, reads, record)
+    return rows, record, shared
 
 
 def _batched_kernels(dc, tables, launches, record):
@@ -1730,7 +1749,8 @@ def _batched_kernels(dc, tables, launches, record):
 
 def _seed_kernels(device, reads, record):
     """B7 and B8 on one [SEED_BATCH, 256] batch of the real reads (the
-    main path's shape for 150-bp reads) against their plain versions."""
+    main path's shape for 150-bp reads) against their plain versions.
+    Returns the batch's survivor stream and B8's first (row, cap)."""
     import torch
 
     from sylph_tpu_torch.engine import device_sketch as ds
@@ -1790,6 +1810,203 @@ def _seed_kernels(device, reads, record):
         _fail("B8 overflow was not detected (live count unchanged)")
     print(f"overflow check: B8 at cap 256 of 16384 kept {kept} of "
           f"{n_live} survivors; the count check sees the loss")
+    return stream, row, cap
+
+
+# ---- (t)-(v): the row repacks, kbench and the grange layout cache ---------
+
+def _row_repack_phase(shared, record):
+    """(t): B11 and B12 at the shapes of their JAX roles, each driven once
+    with the launch counts set to 0 just before and read just after: B11
+    condenses the survivor stream of one [65,536, 256] batch of the real
+    reads at B8's first (row, cap) (repack_pallas's role: the pair stream
+    of read seeding), B12 chunk 0's column-major code stream at B3's (row,
+    cap) (repack1_pallas's: the grange code chain). Then each against its
+    plain version there, at a geometry only their 128-lane check admits
+    (row + 128, cap + 128), and B11 at cap 128, an overflow the caller's
+    count must see. B8's first (row, cap) is sized from the random
+    expectation (3.4% live) and these reads carry a planted k-mer each
+    (4.8%), so B11 drops survivors there too, as B8 does on the main path
+    before its caller redoes the batch."""
+    import torch
+
+    from sylph_tpu_torch.gpu import _cuda
+    from sylph_tpu_torch.gpu import seeding as sd
+
+    keys, krow, kcap = shared["keys"]
+    codes, crow, ccap = shared["codes"]
+    _cuda.reset_launches()
+    b11 = sd.repack_rows(keys, row=krow, cap=kcap)
+    b12 = sd.repack1_rows(codes, row=crow, cap=ccap)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    for name in ("B11_repack_rows", "B12_repack1_rows"):
+        if launches[name] <= 0:
+            _fail(f"{name} was not launched in (t)")
+    for name, fn, plain, x, row, cap, width, out in (
+            ("B11_repack_rows", sd.repack_rows, sd.repack_rows_plain, keys,
+             krow, kcap, 8, b11),
+            ("B12_repack1_rows", sd.repack1_rows, sd.repack1_rows_plain,
+             codes, crow, ccap, 4, b12)):
+        n_live = int((x != -1).sum())
+        kept = int((out != -1).sum())
+        err = _same(name, (out,), (plain(x, row=row, cap=cap),))
+        wide = (row + 128, cap + 128)         # 128-multiples, not 256
+        _same(f"{name} at {wide}", (fn(x, row=wide[0], cap=wide[1]),),
+              (plain(x, row=wide[0], cap=wide[1]),))
+        live = x != -1
+        record(name, "repack.cu", {
+            "B11_repack_rows": "sylph_tpu/tpu/pallas_seeding.py:314",
+            "B12_repack1_rows": "sylph_tpu/tpu/pallas_seeding.py:346"}[name],
+            err, _cuda_ms(lambda: fn(x, row=row, cap=cap), 50),
+            _cuda_ms(lambda: plain(x, row=row, cap=cap), 5),
+            x.numel() * width + out.numel() * width, 0,
+            library_ms=_cuda_ms(lambda: torch.masked_select(x, live), 50),
+            n_launches=launches[name])
+        print(f"{name}: ({row}, {cap}) -> {tuple(out.shape)}, kept {kept} "
+              f"of {n_live} live; {wide} bit-identical too")
+    _dispatch_split(keys, krow, kcap)
+    small = sd.repack_rows(keys, row=krow, cap=128)
+    _same("B11_repack_rows overflow", (small,),
+          (sd.repack_rows_plain(keys, row=krow, cap=128),))
+    kept, n_live = int((small != -1).sum()), int((keys != -1).sum())
+    if kept >= n_live:
+        _fail("B11 overflow was not detected (live count unchanged)")
+    print(f"check (t): B11 and B12 launched and bit-identical; B11 at cap "
+          f"128 of {krow} kept {kept} of {n_live} survivors, the loss seen")
+
+
+def _dispatch_split(keys, row, cap):
+    """B8 and B11 are one kernel on one stream at one (row, cap) (72 and 66
+    blocks): their CUDA-event times in turns (B8, B11, B11, B8), beside the
+    host's enqueue time a call and the device time a launch from
+    torch.profiler ("not measured" where it shows none). Where the enqueue
+    time reaches the event time, the event time of back-to-back calls is
+    the host's, not the kernel's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sylph_tpu_torch.gpu import bucket_fill as bf
+    from sylph_tpu_torch.gpu import seeding as sd
+
+    fns = {"B8": lambda: bf.repack2_flat(keys, row=row, cap=cap),
+           "B11": lambda: sd.repack_rows(keys, row=row, cap=cap)}
+    out = {k: {"event_ms": []} for k in fns}
+    for k in ("B8", "B11", "B11", "B8"):
+        out[k]["event_ms"].append(_cuda_ms(fns[k], 50))
+    for k, fn in fns.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        out[k]["enqueue_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if "repack_kernel" in e.key]
+        total = sum(getattr(e, "device_time_total",
+                            getattr(e, "cuda_time_total", 0)) for e in dev)
+        n = sum(e.count for e in dev)
+        out[k]["device_ms"] = total / n / 1e3 if total and n else \
+            "not measured"
+    print("B8 and B11 dispatch split: " + json.dumps(out))
+
+
+def _kbench_phase(record):
+    """(u): sylph_tpu_torch.kbench's table in-process, the launch counts
+    set to 0 just before it and read just after; every microkernel was
+    held bit for bit against its plain version inside (a mismatch
+    raises). The table goes out as one JSON line; each microkernel also
+    gets a kernels row."""
+    from sylph_tpu_torch import kbench
+    from sylph_tpu_torch.gpu import _cuda
+
+    _cuda.reset_launches()
+    try:
+        rows = kbench.table()
+    except RuntimeError as e:
+        _fail(f"(u) {e}")
+    launches = dict(_cuda.LAUNCHES)
+    for r in rows:
+        print("kbench " + kbench.format_row(r))
+    print(json.dumps({"kbench": rows}))
+    for r in rows:
+        if r["kernel"] is None:
+            continue
+        if launches[r["kernel"]] <= 0:
+            _fail(f"{r['name']} was not launched in (u)")
+        record(r["name"], "kbench.cu", r["replaces"], 0.0, r["ms"],
+               r["plain_ms"], r["nbytes"], r["ops"],
+               library_ms=r["library_ms"], n_launches=launches[r["kernel"]])
+    print(f"check (u): {sum(r['kernel'] is not None for r in rows)} "
+          "microkernels and the real kernels bit-identical to their plain "
+          "versions")
+
+
+def _cache_phase(work, bucket_paths):
+    """(v): the grange layout cache on the bucket phase's database and
+    bsample.sylsp, with the grange regime forced (GRANGE_MIN lowered for
+    the phase): the first ``profile`` with SYLPH_GRANGE_CACHE builds the
+    layout and saves it, the second loads it. Both TSVs equal (l)'s; the
+    loaded layout equals the built one field by field."""
+    import torch
+
+    from sylph_tpu_torch.engine.device_exec import DeviceContainment
+    from sylph_tpu_torch.gpu.grange import GRangeIndex
+
+    db, spath, tsv_l = bucket_paths
+    old = DeviceContainment.GRANGE_MIN
+    DeviceContainment.GRANGE_MIN = 0
+    os.environ["SYLPH_GRANGE_CACHE"] = os.path.join(work, "grange_cache")
+    try:
+        runs = []
+        for tag in ("save", "load"):
+            out = os.path.join(work, f"cache_{tag}.tsv")
+            launches, wall, stages, dc = _drive(
+                ["profile", db, spath, "-o", out])
+            if dc._grange is None:
+                _fail("(v) the profile did not run the grange regime")
+            if launches["B1_fill"] <= 0:
+                _fail("(v) the grange sweep launched no B1")
+            runs.append((out, wall, stages.split(), dc._grange.gidx))
+            del dc
+    finally:
+        DeviceContainment.GRANGE_MIN = old
+        del os.environ["SYLPH_GRANGE_CACHE"]
+    with open(tsv_l) as f:
+        want = f.read()
+    for out, *_ in runs:
+        with open(out) as f:
+            if f.read() != want:
+                _fail(f"(v) {os.path.basename(out)} differs from (l)'s TSV")
+    (_, wall_s, st_s, built), (_, wall_l, st_l, loaded) = runs
+    for name in GRangeIndex._fields:
+        x, y = getattr(built, name), getattr(loaded, name)
+        same = (all(torch.equal(u, v) and u.dtype == v.dtype
+                    for u, v in zip(x, y)) and len(x) == len(y)
+                if isinstance(x, list) else
+                x.dtype == y.dtype and np.array_equal(x, y)
+                if isinstance(x, np.ndarray) else x == y)
+        if not same:
+            _fail(f"(v) the loaded layout's {name} differs from the built")
+    build = sum(v for k, v in st_s.items() if k.startswith("grange index "
+                                                            "build"))
+    split = dict(save_call_wall_s=wall_s, build_s=build,
+                 save_s=st_s.get("grange cache save", 0.0),
+                 load_call_wall_s=wall_l,
+                 load_s=st_l.get("grange cache load", 0.0),
+                 load_call_build_s=sum(
+                     v for k, v in st_l.items()
+                     if k.startswith("grange index build")))
+    if not (split["build_s"] > 0 and split["save_s"] > 0
+            and split["load_s"] > 0 and split["load_call_build_s"] == 0):
+        _fail(f"(v) stage split shows no build/save/load: {split}")
+    print("grange cache: " + json.dumps(split))
+    print("check (v): both TSVs equal (l)'s; the loaded layout equals the "
+          "built one field by field")
 
 
 def main(argv=None) -> int:
@@ -1850,14 +2067,21 @@ def main(argv=None) -> int:
         small_db, asm_paths, sk_launches = _sketch_phase(a, work)
         genomes, small = _merge_phase(a, work, small_db)
         _merge_cohort_phase(a, work, small_db, genomes, small)
-        bdc, bsmp, b_launches = _bucket_phase(a, work)
-        rows, record = _kernels(dc, loaded, launches, reads)
+        bdc, bsmp, b_launches, bucket_paths = _bucket_phase(a, work)
+        rows, record, shared = _kernels(dc, loaded, launches, reads)
         _batched_kernels(dc, [loaded["sample"][1:3], loaded["deep"][1:3],
                               host_tbl[:2]], c_launches, record)
         _small_db_kernels(bdc, bsmp, asm_paths, b_launches, sk_launches,
                           record)
         _pipeline_kernels(dc.device, batch, blens, q_launches, s_launches,
                           record)
+        for tag, phase in (
+                ("t", lambda: _row_repack_phase(shared, record)),
+                ("u", lambda: _kbench_phase(record)),
+                ("v", lambda: _cache_phase(work, bucket_paths))):
+            t0 = time.perf_counter()
+            phase()
+            print(f"phase ({tag}): {time.perf_counter() - t0:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": rows}))

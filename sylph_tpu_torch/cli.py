@@ -1,20 +1,22 @@
 """Command-line interface: ``python -m sylph_tpu_torch {sketch, profile,
-query}``.
+query, inspect}``.
 
 The flags are sylph_tpu's (sylph src/cmdline.rs), less ``--tpu``,
 ``--serve``, ``--profile-trace`` and the multi-host flags, plus ``--device
 {cuda,cpu}`` (default cuda: seeding and containment run on the GPU unless
 the CPU is asked for). ``sketch`` takes genomes (``-g``, fasta files,
-``--gl``) into one ``.syldb`` and reads (``-r``, ``-1/-2``, fastq files)
-into ``.sylsp`` samples; ``profile``/``query`` take ``.syldb`` databases or
-genome fasta files, and ``.sylsp`` samples or raw reads. The read list
-files ``--rl``, ``--l1`` and ``--l2`` are not ported.
+``--gl``) into one ``.syldb`` and reads (``-r``, ``--rl``, ``-1/-2``,
+``--l1/--l2``, fastq files) into ``.sylsp`` samples; ``profile``/``query``
+take ``.syldb`` databases or genome fasta files, and ``.sylsp`` samples or
+raw reads; ``inspect`` prints sketch metadata as YAML (host only).
 """
 
 import argparse
 import logging
+import os
 import sys
 
+from .engine.inspect_cmd import InspectOptions, inspect
 from .engine.runner import ContainOptions, contain
 from .engine.sketch_cmd import SketchOptions, sketch
 
@@ -49,7 +51,10 @@ def _add_sketch(sub):
     p.add_argument("-r", "--reads", nargs="+", default=[])
     p.add_argument("-g", "--genomes", nargs="+", default=[])
     p.add_argument("-l", "--list", dest="list_sequence", default=None)
+    p.add_argument("--rl", dest="list_reads", default=None)
     p.add_argument("--gl", dest="list_genomes", default=None)
+    p.add_argument("--l1", dest="list_first_pair", default=None)
+    p.add_argument("--l2", dest="list_second_pair", default=None)
     p.add_argument("-1", "--first-pairs", dest="first_pair", nargs="+",
                    default=[])
     p.add_argument("-2", "--second-pairs", dest="second_pair", nargs="+",
@@ -122,6 +127,14 @@ def _add_contain(sub, name, helptext):
     return p
 
 
+def _add_inspect(sub):
+    p = sub.add_parser("inspect",
+                       help="Inspect sketched .syldb and .sylsp files.")
+    p.add_argument("files", nargs="*")
+    p.add_argument("-o", "--output-file", dest="out_file_name", default=None)
+    return p
+
+
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="sylph-torch",
@@ -134,6 +147,7 @@ def build_parser():
     _add_contain(sub, "query", "Coverage-adjusted ANI querying between "
                  "databases and samples.")
     ap._sub_map = dict(sub.choices)       # for intermixed parsing in main()
+    ap._inspect = _add_inspect(sub)
     return ap
 
 
@@ -167,7 +181,9 @@ def _sketch_options(a) -> SketchOptions:
         files=a.files, db_out_name=a.db_out_name,
         sample_output_dir=a.sample_output_dir, individual=a.individual,
         reads=a.reads, genomes=a.genomes, list_sequence=a.list_sequence,
-        list_genomes=a.list_genomes, first_pair=a.first_pair,
+        list_reads=a.list_reads, list_genomes=a.list_genomes,
+        list_first_pair=a.list_first_pair,
+        list_second_pair=a.list_second_pair, first_pair=a.first_pair,
         second_pair=a.second_pair, sample_names=a.sample_names,
         list_sample_names=a.list_sample_names, k=a.k, c=a.c,
         threads=a.threads, max_ram=a.max_ram, no_dedup=a.no_dedup,
@@ -175,7 +191,34 @@ def _sketch_options(a) -> SketchOptions:
         fpr=a.fpr, device=a.device)
 
 
+def _tune_allocator() -> None:
+    """Re-exec once with glibc malloc tuned for streaming ingest
+    (sylph_tpu/cli.py::_tune_allocator).
+
+    The ingest cycles multi-MB buffers (decode blocks, code arrays) across
+    threads; stock glibc gives each thread its own arena and mmaps and
+    unmaps large blocks, so every block is first-touch-faulted again. One
+    shared arena with no trim keeps the pages hot. glibc reads these only
+    at process start, hence the exec. Opt out with SYLPH_NO_MALLOC_TUNE=1.
+    """
+    if os.environ.get("SYLPH_NO_MALLOC_TUNE") or \
+            os.environ.get("MALLOC_MMAP_THRESHOLD_") is not None or \
+            not sys.platform.startswith("linux"):
+        return
+    env = dict(os.environ,
+               MALLOC_MMAP_THRESHOLD_="17179869184",
+               MALLOC_TRIM_THRESHOLD_="-1",
+               MALLOC_ARENA_MAX="1")
+    try:
+        os.execve(sys.executable, [sys.executable, "-m", "sylph_tpu_torch"]
+                  + list(sys.argv[1:]), env)
+    except OSError:                      # exec denied: run untuned
+        os.environ["SYLPH_NO_MALLOC_TUNE"] = "1"
+
+
 def main(argv=None) -> int:
+    if argv is None:
+        _tune_allocator()
     argv = list(sys.argv[1:] if argv is None else argv)
     ap = build_parser()
     if not argv:
@@ -191,10 +234,21 @@ def main(argv=None) -> int:
     if args.mode is None:
         ap.print_help(sys.stderr)
         return 2
-    _setup_logging(args.trace, args.debug)
+    if args.mode == "inspect":
+        _setup_logging()
+        if not args.files:
+            # the JAX CLI means to exit 2 here and exits 0: its help's
+            # SystemExit(0) is caught (ROADMAP C)
+            ap._inspect.print_help(sys.stderr)
+            return 2
+    else:
+        _setup_logging(args.trace, args.debug)
     try:
         if args.mode == "sketch":
             sketch(_sketch_options(args))
+        elif args.mode == "inspect":
+            inspect(InspectOptions(files=args.files,
+                                   out_file_name=args.out_file_name))
         else:
             contain(_contain_options(args),
                     pseudotax=(args.mode == "profile"))

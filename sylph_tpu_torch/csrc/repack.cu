@@ -13,6 +13,14 @@
 // is -1. The two Pallas bodies are one algorithm on two payloads, so one
 // kernel template serves both.
 //
+// It also serves B11 and B12, the row repacks of pallas_seeding.py
+// (::_repack_kernel, wrapper repack_pallas, on (hi, lo) pairs: the int64
+// instance; ::_repack1_kernel, wrapper repack1_pallas, on uint32 codes: the
+// int32 instance). Their contract is this one with windows called rows and
+// nwin = the row count padded to a multiple of the Pallas row block, which
+// the wrappers in sylph_tpu_torch/gpu/seeding.py compute; row and cap are
+// multiples of 128 there, which the kernel takes as it takes any width.
+//
 // Bound on the H100: bytes. One read of the stream and one write of
 // nwin*cap slots (4 B a slot for B3, 8 B for B8).
 //

@@ -19,11 +19,17 @@ byte-identical to the host engine. ``prefetch`` batches a cohort of samples
 (merge: one batched join; grange: one batched histogram sweep; bucket:
 nothing, its samples are served one at a time). The JAX package's
 multi-device sharding is not ported.
+
+``SYLPH_GRANGE_CACHE=DIR`` keeps the grange layout on disk: the first call
+on a database builds it and saves it under DIR, later calls load it. The
+key is the genome count, the total k-mers, a content fingerprint and the
+layout's ``nt`` setting, so a database whose content changed rebuilds.
 """
 
 import logging
+import os
 import threading
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -32,7 +38,8 @@ from ..core.types import GenomeSketch, SequencesSketch
 from ..gpu.bucket_join import bucket_join_counts, build_bucketed_index
 from ..gpu.containment import (build_host_index, merge_join_counts,
                                 merge_join_counts_batched)
-from ..gpu.grange import GRangeEngine, build_grange_index, resolve_device
+from ..gpu.grange import (GRangeEngine, GRangeIndex, build_grange_index,
+                          resolve_device)
 from ..gpu.keys import KEY_PAD
 from ..utils.timing import stage_timer
 
@@ -106,15 +113,27 @@ class DeviceContainment:
     def _init_grange(self, total: int):
         genome_sketches = self._genome_sketches
         self._mask_matches_hint = None    # last stream sweep's matches
-        with stage_timer(f"grange index build ({total} k-mers)"):
-            kmers = np.concatenate(
-                [g.genome_kmers for g in genome_sketches]).astype(np.uint64)
-            gids = np.repeat(
-                np.arange(len(genome_sketches), dtype=np.int32),
-                [g.genome_kmers.size for g in genome_sketches])
-            gidx = build_grange_index(kmers, gids, len(genome_sketches),
-                                      device=self.device)
-            del kmers, gids
+        cache = os.environ.get("SYLPH_GRANGE_CACHE")
+        path = _grange_cache_path(cache, total, genome_sketches) \
+            if cache else None
+        gidx = None
+        if path is not None and os.path.exists(os.path.join(path, _META)):
+            with stage_timer("grange cache load"):
+                gidx = _grange_cache_load(path, total, len(genome_sketches))
+        if gidx is None:
+            with stage_timer(f"grange index build ({total} k-mers)"):
+                kmers = np.concatenate(
+                    [g.genome_kmers for g in genome_sketches]
+                ).astype(np.uint64)
+                gids = np.repeat(
+                    np.arange(len(genome_sketches), dtype=np.int32),
+                    [g.genome_kmers.size for g in genome_sketches])
+                gidx = build_grange_index(kmers, gids, len(genome_sketches),
+                                          device=self.device)
+                del kmers, gids
+            if path is not None:
+                with stage_timer("grange cache save"):
+                    _grange_cache_save(path, gidx)
         max_res = self._grange_residency(gidx)
         with stage_timer("grange index upload"):
             self._grange = GRangeEngine(gidx, device=self.device,
@@ -391,3 +410,79 @@ def _warm_table(sample, overlap: bool):
         sk, sc = sample.sorted_view()
         return sk.astype(np.uint64, copy=False), sc
     return table_fn
+
+
+# ---- the grange layout cache (SYLPH_GRANGE_CACHE) --------------------------
+
+_META = "meta.npz"
+
+
+def _grange_fingerprint(genome_sketches) -> str:
+    """Cheap content fingerprint of a genome-sketch list: per-genome sizes
+    plus three sampled k-mers per genome (first/middle/last of the
+    insertion-order array). A rebuilt or swapped syldb that happens to
+    match on (n_genomes, total k-mers) alone changes this with overwhelming
+    probability, so a stale cached layout cannot silently load."""
+    import hashlib
+    h = hashlib.sha1()
+    sizes = np.array([g.genome_kmers.size for g in genome_sketches],
+                     np.int64)
+    h.update(sizes.tobytes())
+    for g in genome_sketches:
+        k = g.genome_kmers
+        if k.size:
+            h.update(np.asarray([k[0], k[k.size // 2], k[-1]],
+                                np.uint64).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _grange_cache_path(cache_dir: str, total: int, genome_sketches) -> str:
+    """The layout's directory under ``cache_dir``. The ``torch_`` prefix
+    keeps it apart from the JAX package's (hi, lo) layouts, which it
+    names ``grange_*`` in the same variable's directory; ``ntauto`` is the
+    layout setting (the engine lets the build choose nt)."""
+    fp = _grange_fingerprint(genome_sketches)
+    return os.path.join(cache_dir, f"torch_grange_{len(genome_sketches)}_"
+                        f"{total}_{fp}_ntauto")
+
+
+def _grange_cache_load(path: str, total: int,
+                       n_genomes: int) -> Optional[GRangeIndex]:
+    """The layout saved under ``path``, or None when its metadata does not
+    describe this database."""
+    meta = np.load(os.path.join(path, _META))
+    if int(meta["m"]) != total or int(meta["n_genomes"]) != n_genomes:
+        return None
+    n_chunks = int(meta["n_chunks"])
+
+    def grids(name):
+        files = [os.path.join(path, f"{name}{i}.npy") for i in range(n_chunks)]
+        return [torch.from_numpy(np.load(f)) for f in files]
+    gidx = GRangeIndex(
+        grids("keys"), grids("gid"), meta["bases"], meta["edges_u64"],
+        int(meta["width"]), int(meta["B"]), int(meta["CI"]),
+        meta["spill_kmers"], meta["spill_gids"], total, n_genomes,
+        nt=int(meta["nt"]), ov=int(meta["ov"]),
+        heavy_gids=meta["heavy_gids"], heavy_ptr=meta["heavy_ptr"])
+    log.debug("grange layout loaded from cache %s", path)
+    return gidx
+
+
+def _grange_cache_save(path: str, gidx: GRangeIndex) -> None:
+    """Save the layout under ``path``: per chunk its int64 key grid and
+    int32 genome-id grid, then the other fields in the metadata file,
+    written last and renamed into place, so an interrupted save is never
+    loaded."""
+    os.makedirs(path, exist_ok=True)
+    for i, (k, g) in enumerate(zip(gidx.chunk_keys, gidx.chunk_gid)):
+        np.save(os.path.join(path, f"keys{i}.npy"), k.cpu().numpy())
+        np.save(os.path.join(path, f"gid{i}.npy"), g.cpu().numpy())
+    tmp = os.path.join(path, f"meta.{os.getpid()}.tmp.npz")
+    np.savez(tmp, n_chunks=len(gidx.chunk_keys), bases=gidx.bases,
+             edges_u64=gidx.edges_u64, width=gidx.width, B=gidx.B,
+             CI=gidx.CI, spill_kmers=gidx.spill_kmers,
+             spill_gids=gidx.spill_gids, m=gidx.m, n_genomes=gidx.n_genomes,
+             nt=gidx.nt, ov=gidx.ov, heavy_gids=gidx.heavy_gids,
+             heavy_ptr=gidx.heavy_ptr)
+    os.replace(tmp, os.path.join(path, _META))
+    log.debug("grange layout cached to %s", path)

@@ -58,8 +58,7 @@ def check_ram_and_block(max_ram: Optional[int], context: str) -> None:
 
 @dataclass
 class SketchOptions:
-    """SketchArgs (sylph src/cmdline.rs:28-83), less the read list files
-    (--rl, --l1, --l2)."""
+    """SketchArgs (sylph src/cmdline.rs:28-83)."""
     files: List[str] = field(default_factory=list)
     db_out_name: str = "database"
     sample_output_dir: str = "./"
@@ -67,7 +66,10 @@ class SketchOptions:
     reads: List[str] = field(default_factory=list)
     genomes: List[str] = field(default_factory=list)
     list_sequence: Optional[str] = None
+    list_reads: Optional[str] = None
     list_genomes: Optional[str] = None
+    list_first_pair: Optional[str] = None
+    list_second_pair: Optional[str] = None
     first_pair: List[str] = field(default_factory=list)
     second_pair: List[str] = field(default_factory=list)
     sample_names: Optional[List[str]] = None
@@ -92,9 +94,10 @@ def _parse_line_file(path: str, vec: List[str]):
 def sketch(o: SketchOptions):
     from ..utils.threads import set_thread_budget
     set_thread_budget(o.threads)
+    lists = (o.list_sequence, o.list_reads, o.list_genomes,
+             o.list_first_pair, o.list_second_pair)
     if not (o.files or o.reads or o.genomes or o.first_pair
-            or o.second_pair or o.list_sequence is not None
-            or o.list_genomes is not None):
+            or o.second_pair or any(x is not None for x in lists)):
         log.error("No input sequences found; see sylph sketch -h for help. "
                   "Exiting.")
         raise SystemExit(1)
@@ -117,12 +120,22 @@ def sketch(o: SketchOptions):
                         "extension; skipping", f)
     genome_inputs.extend(o.genomes)       # src/sketch.rs:191-216
     read_inputs.extend(o.reads)
+    if o.list_reads is not None:
+        _parse_line_file(o.list_reads, read_inputs)
     if o.list_genomes is not None:
         _parse_line_file(o.list_genomes, genome_inputs)
-    if len(o.first_pair) != len(o.second_pair):
+    if len(o.first_pair) != len(o.second_pair):   # src/sketch.rs:218-250
         log.error("Different number of paired sequences. Exiting.")
         raise SystemExit(1)
-    pairs = list(zip(o.first_pair, o.second_pair))
+    first_pairs, second_pairs = list(o.first_pair), list(o.second_pair)
+    if o.list_first_pair is not None:
+        _parse_line_file(o.list_first_pair, first_pairs)
+    if o.list_second_pair is not None:
+        _parse_line_file(o.list_second_pair, second_pairs)
+    if len(first_pairs) != len(second_pairs):
+        log.error("Different number of paired sequences. Exiting.")
+        raise SystemExit(1)
+    pairs = list(zip(first_pairs, second_pairs))
 
     # sample names (src/sketch.rs:260-293): pairs first, then single-end
     sample_names: Optional[List[str]] = None

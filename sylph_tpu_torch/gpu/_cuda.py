@@ -24,16 +24,23 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("fill", "join", "repack", "seed", "seed_pack")
+SOURCES = ("fill", "join", "repack", "seed", "seed_pack", "kbench")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the microkernels of csrc/kbench.cu, one count per kernel and chain length
+KBENCH_KERNELS = ("identity",) + tuple(
+    f"{k}_x{n}" for k in ("alu", "lane_roll", "half_roll", "warp_roll",
+                          "sublane_roll", "rank", "barrier", "funnel")
+    for n in (16, 64))
 
 LAUNCHES = {"B1_fill": 0, "B2_join_codes_compact": 0, "B3_repack": 0,
             "B4_join_codes": 0, "B5_join_counts": 0,
             "B5p_bucket_join": 0, "B7_seed": 0, "B8_repack2": 0,
             "B2b_join_codes_compact_batched": 0,
             "B4b_join_codes_batched": 0, "B5b_join_counts_batched": 0,
-            "B6_seed_pack": 0, "B9_seed_pack_t": 0, "B10_seed_compact": 0}
+            "B6_seed_pack": 0, "B9_seed_pack_t": 0, "B10_seed_compact": 0,
+            "B11_repack_rows": 0, "B12_repack1_rows": 0,
+            **{f"kbench_{k}": 0 for k in KBENCH_KERNELS}}
 BUILD_LOG = {}                 # source name -> nvcc/ptxas output
 BUILD_SECONDS = {}             # source name -> wall seconds of its nvcc
 
@@ -135,6 +142,7 @@ _SIGNATURES = {                 # C entry point -> argument types
                          _I32, _P, _P],
     "seed_pack_t_launch": [_P, _P, _I64, _I32, _I32, ctypes.c_uint64, _I32,
                            _P, _P],
+    "kbench_launch": [_I32, _I32, _P, _P, _I64, _P],
 }
 
 

@@ -70,8 +70,16 @@ def repack1_flat_plain(v: torch.Tensor, *, row: int,
     """Plain version of B3 (int32 codes) and B8 (int64 keys): per
     ``row``-slot window, the non-pad (-1) entries in order in the first
     ``cap`` slots, overflow dropped, -1 after."""
+    return repack_windows_plain(v, _n_windows(v.shape[0], row), row, cap)
+
+
+def repack_windows_plain(v: torch.Tensor, nwin: int, row: int,
+                         cap: int) -> torch.Tensor:
+    """The function of csrc/repack.cu: the flat stream ``v`` read as
+    ``nwin`` windows of ``row`` slots (slots past its end are pads), each
+    window's non-pad (-1) entries in order in its first ``cap`` output
+    slots, overflow dropped, -1 after -> [nwin * cap]."""
     n = v.shape[0]
-    nwin = _n_windows(n, row)
     vin = torch.full((nwin * row,), -1, dtype=v.dtype, device=v.device)
     vin[:n] = v
     vin = vin.view(nwin, row)
@@ -96,8 +104,16 @@ def _repack(v: torch.Tensor, row: int, cap: int, dtype: torch.dtype,
     v = v.reshape(-1)
     if v.device.type == "cpu":
         return repack1_flat_plain(v, row=row, cap=cap)
+    return launch_repack(v, _n_windows(v.shape[0], row), row, cap, dtype,
+                         entry, kname)
+
+
+def launch_repack(v: torch.Tensor, nwin: int, row: int, cap: int,
+                  dtype: torch.dtype, entry: str, kname: str) -> torch.Tensor:
+    """Launch csrc/repack.cu's kernel (C entry ``entry``, int32 or int64
+    instance) over ``nwin`` windows of the CUDA stream ``v`` -> [nwin * cap],
+    counted under ``kname``: B3, B8, B11 and B12."""
     _cuda.require(v, "v", dtype, 1, v.device)
-    nwin = _n_windows(v.shape[0], row)
     out = torch.empty(nwin * cap, dtype=dtype, device=v.device)
     lib = _cuda.library("repack")
     with torch.cuda.device(v.device):

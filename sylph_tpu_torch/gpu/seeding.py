@@ -12,6 +12,11 @@ tensors with the uint32 bits. A hash is one int64 with the uint64 bits
 so the plain versions use wrapping int64 adds, masked logical right shifts
 and a sign-flipped threshold compare; the CUDA kernel (csrc/seed.cu) uses
 uint64_t throughout.
+
+Also here, as in pallas_seeding.py: the row repacks B11 (``repack_rows``,
+the counterpart of ``repack_pallas``) and B12 (``repack1_rows``, of
+``repack1_pallas``), which condense a pad-coded stream row by row. They
+run csrc/repack.cu's kernel, B8's int64 and B3's int32 instance.
 """
 
 import ctypes
@@ -20,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from .bucket_fill import launch_repack, repack_windows_plain
 
 _INT64_MIN = -(1 << 63)
 
@@ -179,3 +185,77 @@ def seed_packed(packed: torch.Tensor, lengths: torch.Tensor, *, c: int,
     _cuda.check(lib, rc, "seed_launch")
     _cuda.count_launch("B7_seed")
     return hash_, keep
+
+
+# ---- B11 and B12: row repacks -------------------------------------------
+
+def _check_rows(row: int, cap: int) -> None:
+    """The Pallas wrappers' geometry check (pallas_seeding.py:362-364,
+    403-405)."""
+    if cap % 128 != 0 or row % 128 != 0 or cap > row:
+        raise ValueError(f"row/cap must be 128-multiples with cap <= row "
+                         f"(got row={row} cap={cap})")
+
+
+def _rows_padded(n: int, row: int, tr_max: int) -> int:
+    """Rows of ``row`` slots over an n-slot stream, padded to a multiple
+    of the Pallas row block tr = min(tr_max, rows)."""
+    rows = -(-n // row)
+    tr = min(tr_max, rows)
+    return -(-rows // tr) * tr if rows else 0
+
+
+def _b12_block(row: int) -> int:
+    """B12's row-block cap: 256 rows, fewer for wide rows (2^19 slots a
+    block, at least 8)."""
+    return min(256, max(8, (1 << 19) // row))
+
+
+def repack_rows_plain(keys: torch.Tensor, *, row: int,
+                      cap: int) -> torch.Tensor:
+    """Plain version of B11: [rows_pad, cap] int64, row r the live (non
+    -1) keys of stream slots [r*row, (r+1)*row) in order, overflow past
+    ``cap`` dropped, -1 after; rows padded to a multiple of min(256,
+    rows)."""
+    _check_rows(row, cap)
+    keys = keys.reshape(-1)
+    nrow = _rows_padded(keys.numel(), row, 256)
+    return repack_windows_plain(keys, nrow, row, cap).view(nrow, cap)
+
+
+def repack1_rows_plain(v: torch.Tensor, *, row: int,
+                       cap: int) -> torch.Tensor:
+    """Plain version of B12: B11 on an int32 code stream (pad -1 =
+    0xFFFFFFFF), rows padded to a multiple of min(256, max(8, 2^19 // row),
+    rows)."""
+    _check_rows(row, cap)
+    v = v.reshape(-1)
+    nrow = _rows_padded(v.numel(), row, _b12_block(row))
+    return repack_windows_plain(v, nrow, row, cap).view(nrow, cap)
+
+
+def repack_rows(keys: torch.Tensor, *, row: int, cap: int) -> torch.Tensor:
+    """B11: condense a flat int64 key stream (pad -1) row by row ->
+    [rows_pad, cap]; see ``repack_rows_plain``. The port's form of
+    repack_pallas's (hi, lo) pair streams, as B8 is of repack2_flat's: only
+    the key -1 is a pad, so a key whose high word is 0xFFFFFFFF and whose
+    low word is not is kept (the Pallas kernel drops it; ROADMAP C)."""
+    _check_rows(row, cap)
+    keys = keys.reshape(-1)
+    if keys.device.type == "cpu":
+        return repack_rows_plain(keys, row=row, cap=cap)
+    nrow = _rows_padded(keys.numel(), row, 256)
+    return launch_repack(keys, nrow, row, cap, torch.int64,
+                         "repack64_launch", "B11_repack_rows").view(nrow, cap)
+
+
+def repack1_rows(v: torch.Tensor, *, row: int, cap: int) -> torch.Tensor:
+    """B12: condense a flat int32 code stream (pad -1) row by row ->
+    [rows_pad, cap]; see ``repack1_rows_plain``."""
+    _check_rows(row, cap)
+    v = v.reshape(-1)
+    if v.device.type == "cpu":
+        return repack1_rows_plain(v, row=row, cap=cap)
+    nrow = _rows_padded(v.numel(), row, _b12_block(row))
+    return launch_repack(v, nrow, row, cap, torch.int32, "repack_launch",
+                         "B12_repack1_rows").view(nrow, cap)

@@ -149,6 +149,32 @@ def read_syldb(path: str) -> List[GenomeSketch]:
     return out
 
 
+def read_syldb_metadata(path: str):
+    """Streaming metadata-only load (mirrors the DatabaseVisitor memory fix,
+    sylph src/inspect.rs:78-114): k-mer arrays are skipped, only counts and
+    names are materialized."""
+    with open(path, "rb") as f:
+        r = _Reader(f.read())
+    n = r.u64()
+    metas = []
+    for _ in range(n):
+        n_kmers = r.u64()
+        r.pos += 8 * n_kmers
+        if r.u8():
+            n_tracked = r.u64()
+            r.pos += 8 * n_tracked
+        metas.append(dict(
+            genome_kmers_num=n_kmers,
+            file_name=r.string(),
+            first_contig_name=r.string(),
+            c=r.u64(),
+            k=r.u64(),
+            genome_size=r.u64(),
+            min_spacing=r.u64(),
+        ))
+    return metas
+
+
 def write_syldb(path: str, sketches: List[GenomeSketch]):
     w = _Writer()
     w.u64(len(sketches))

@@ -507,3 +507,47 @@ def test_sketch_batch_on_card_matches_cpu(cuda, monkeypatch):
             _equal((getattr(st, f),), (getattr(sw, f),))
         torch.testing.assert_close(st.final_ani.cpu(), sw.final_ani,
                                    rtol=1e-5, atol=0)
+
+
+# (n, row, cap, dens): the CPU test's geometries (tests/
+# test_torch_repack_rows.py), the last of each list overflowing its rows
+_ROWS = [(20_000, 1024, 256, 0.15), (30_000, 384, 128, 0.2),
+         (50_000, 640, 256, 0.2), (300 * 128 - 50, 128, 128, 0.3),
+         (17 * 32768 + 100, 32768, 1024, 0.02), (40_000, 512, 128, 0.35)]
+
+
+@pytest.mark.parametrize("n,row,cap,dens", _ROWS)
+def test_repack_rows_match_plain(cuda, n, row, cap, dens):
+    """B11 (int64 keys, with a few keys whose high word is 0xFFFFFFFF) and
+    B12 (int32 codes) against their plain versions, bit for bit, with the
+    launch counted."""
+    from sylph_tpu_torch.gpu import _cuda
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 2**62, size=n, dtype=np.int64)
+    keys[rng.random(n) > dens] = -1
+    keys[rng.integers(0, n, size=8)] = -(1 << 32) + 5    # high word SENT
+    codes = rng.integers(0, 2**31, size=n).astype(np.int32)
+    codes[rng.random(n) > dens] = -1
+    keys, codes = torch.from_numpy(keys), torch.from_numpy(codes)
+    before = dict(_cuda.LAUNCHES)
+    got = sd.repack_rows(keys.to(cuda), row=row, cap=cap)
+    _equal((got,), (sd.repack_rows_plain(keys, row=row, cap=cap),))
+    got = sd.repack1_rows(codes.to(cuda), row=row, cap=cap)
+    _equal((got,), (sd.repack1_rows_plain(codes, row=row, cap=cap),))
+    for name in ("B11_repack_rows", "B12_repack1_rows"):
+        assert _cuda.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("kind,n", [("identity", 0)] + [
+    (k, n) for k in ("alu", "lane_roll", "half_roll", "warp_roll",
+                     "sublane_roll", "rank", "barrier", "funnel")
+    for n in (16, 64)])
+def test_kbench_kernels_match_plain(cuda, kind, n):
+    """Every kbench microkernel against its plain version on a [512, 256]
+    batch (two sublane tiles)."""
+    from sylph_tpu_torch import kbench
+    rng = np.random.default_rng(n + len(kind))
+    x = torch.from_numpy(rng.integers(0, 2**32, size=(512, 256),
+                                      dtype=np.uint32).view(np.int32))
+    got = kbench.launch(kind, x.to(cuda), n)
+    _equal((got,), (kbench.PLAIN[kind](x, n),))
