@@ -75,7 +75,12 @@ and drives the port's main path once, at database scale:
      3, for B2b, B4b and B5b, and each at S = 1 against B2, B4 and B5),
      bit for bit, plus overflow cases that must be detected; each kernel's
      time, its plain version's, its bound and, for B3 and B8, one library
-     call's.
+     call's. The rows of csrc/join.cu (B2, B4, B5, B5', B2b, B4b, B5b) also
+     carry torch.profiler's device time a launch and the launch's
+     occupancy as the card reports it (registers, shared memory, resident
+     CTAs a SM); a line of its own beside each gives the compares the
+     kernel issues (per warp, from its loop bounds) and those the data
+     needs, both computed from the inputs, not measured.
 
   6. The one-shot device pipeline (sylph_tpu_torch/gpu/pipeline.py), each
      run with the launch counts set to 0 just before it: (q) bench.py's
@@ -1050,12 +1055,18 @@ def _small_db_kernels(dc, smp, paths, launches, sk_launches, record):
     live = int((dw > 0).sum())
     print(f"B5' at chunk 0: [{B}, {CI}] x {CS} lanes, {live} of {B * CS} "
           f"lanes live ({1 - live / (B * CS):.3f} pad share)")
+    def b5p():
+        return bj.bucket_counts(ikey, dk, dw)
+
     record("B5p_bucket_join", "join.cu", "sylph_tpu/tpu/bucket_join.py:377",
-           err, _cuda_ms(lambda: bj.bucket_counts(ikey, dk, dw), 20),
+           err, _cuda_ms(b5p, 20),
            _cuda_ms(lambda: bj.join_counts_plain(ikey, dk, dw), 2),
-           B * CI * 8 + B * CS * 12 + B * CI * 4,
+           _join_bytes(ikey, dw, B * CI * 4),
            _live_compares(ikey, dw) * INT32_OPS_PER_COMPARE,
-           n_launches=launches["B5p_bucket_join"])
+           n_launches=launches["B5p_bucket_join"],
+           profiler_ms=_profiler_ms(b5p, "join_kernel"),
+           **_join_extras("B5p_bucket_join", bj._MODE_COUNTS, ikey,
+                          dk[None], dw[None]))
 
     # B7 on the first 2048 genome rows of the assemblies, in order
     parts = []
@@ -1478,6 +1489,94 @@ def _live_compares(ikey, dw, nt: int = 1, tile: int = 0) -> int:
     return int(n)
 
 
+def _executed_compares(ikey, dk, dw, nt: int = 1, tile: int = 0):
+    """Compares join.cu issues for one sample's [B, LW] cells, computed
+    from the shapes and the kernel's loop bounds (not measured), counted
+    per warp: where any thread of a warp compares a row, all 32 threads
+    issue the loop over the row's live lanes (each list padded to even) for
+    their two columns, 64 compares a lane. A warp's 64 columns see one lane
+    group (tile a multiple of 64), or past the tiles every live lane: one
+    merged list where its CTA's 128 columns all lie past the tiles, else
+    every group's list. A column compares a row unless its slot holds the
+    pad key and no live lane its CTA staged holds it. None where a warp's
+    columns could see two groups."""
+    nt = max(nt, 1)
+    if nt > 1 and tile % 64:
+        return None
+    B, CI = ikey.shape
+    tiled = nt * tile if nt > 1 else 0
+    live = dw != 0
+    per_g = live.view(B, nt, -1).sum(2)                    # [B, nt]
+    neg_g = (live & (dk == -1)).view(B, nt, -1).any(2)
+    total = 0
+    for j0 in range(0, CI, 64):
+        c0 = j0 // 128 * 128
+        cl = min(c0 + 128, CI) - 1
+        if c0 >= tiled:
+            n = per_g.sum(1) + per_g.sum(1) % 2
+        elif j0 >= tiled:
+            n = (per_g + per_g % 2).sum(1)
+        else:
+            n = per_g[:, j0 // tile] + per_g[:, j0 // tile] % 2
+        staged = (neg_g if cl >= tiled
+                  else neg_g[:, c0 // tile:cl // tile + 1])
+        go = (ikey[:, j0:j0 + 64] != -1).any(1) | staged.any(1)
+        total += int((go * n).sum()) * 64
+    return total
+
+
+def _join_bytes(ikey, dw, out_bytes: int, counts=None) -> int:
+    """Bytes a join.cu launch must move: the key grid once, the weight
+    grid(s), 8 B for each live lane's key, 4 B of gid for each slot whose
+    count is > 0 (code modes: ``counts`` given) and the output as
+    written."""
+    n = ikey.numel() * 8 + dw.numel() * 4 + int((dw != 0).sum()) * 8
+    if counts is not None:
+        n += int((counts > 0).sum()) * 4
+    return n + out_bytes
+
+
+def _join_extras(name, mode, ikey, dk, dw, nt: int = 1,
+                 tile: int = 0) -> dict:
+    """A join.cu row's occupancy as the card reports it for this launch,
+    for [S, B, LW] cells. Prints, on a line of its own, the compares the
+    kernel issues beside those the data needs, both computed from this
+    run's inputs (``_executed_compares``, ``_live_compares``), not
+    measured."""
+    from sylph_tpu_torch.gpu import bucket_join as bj
+    S, _, LW = dk.shape
+    ex = [_executed_compares(ikey, dk[s], dw[s], nt, tile) for s in range(S)]
+    print(f"{name} compares, computed from the inputs and join.cu's loop "
+          "bounds, per warp (not measured): " + json.dumps(dict(
+              executed=None if None in ex else sum(ex),
+              needed=sum(_live_compares(ikey, dw[s], nt, tile)
+                         for s in range(S)))))
+    plan = bj.join_plan(S, ikey.shape[1], LW, nt, tile, mode)
+    return dict(occupancy=bj.join_occupancy(mode, plan))
+
+
+def _profiler_ms(fn, kernel: str, reps: int = 20):
+    """Device ms a launch of the kernel whose name holds ``kernel``, by
+    torch.profiler over ``reps`` calls of one launch each ("not measured"
+    where it shows no device time or captured another number of
+    launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0)) for e in dev)
+    n = sum(e.count for e in dev)
+    return total / n / 1e3 if total and n == reps else "not measured"
+
+
 def _live_windows(lens, k: int) -> int:
     """k-mer windows in rows of these lengths."""
     import torch
@@ -1540,11 +1639,12 @@ def _kernels(dc, loaded, launches, reads):
     rows = []
 
     def record(name, src, replaces, err, ms, plain_ms, nbytes, ops,
-               library_ms=None, n_launches=None):
+               library_ms=None, n_launches=None, **extra):
         """One kernels-JSON row; the bound is the larger of the bytes the
         call must move over the HBM rate and its int32 operations over the
         INT32 issue rate. Launches are the GTDB-scale path's unless given
-        (another path's count)."""
+        (another path's count). ``extra`` keys (join.cu's profiler time and
+        occupancy) join the row."""
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = ops / H100_INT32_OPS_PER_S * 1e3
         rows.append(dict(
@@ -1554,9 +1654,10 @@ def _kernels(dc, loaded, launches, reads):
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=library_ms))
+            library_ms=library_ms, **extra))
         print(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-              f"bound {max(t_bytes, t_ops):.4f} ms), bit-identical")
+              f"bound {max(t_bytes, t_ops):.4f} ms), bit-identical"
+              + (f"; {json.dumps(extra)}" if extra else ""))
 
     # B1 fill, tiled cells of chunk 0's real slice of sample.sylsp
     pk, pw, P, CS, density = slice0("sample")
@@ -1580,14 +1681,20 @@ def _kernels(dc, loaded, launches, reads):
     got = bj.join_codes_compact(ikey, gidg, dk, dw, CAPR=capr, **jkw)
     want = bj.join_codes_compact_plain(ikey, gidg, dk, dw, CAPR=capr, **jkw)
     err = _same("B2_join_codes_compact", got, want)
+
+    def b2():
+        return bj.join_codes_compact(ikey, gidg, dk, dw, CAPR=capr, **jkw)
+
     record("B2_join_codes_compact", "join.cu",
-           "sylph_tpu/tpu/bucket_join.py:290", err,
-           _cuda_ms(lambda: bj.join_codes_compact(ikey, gidg, dk, dw,
-                                                  CAPR=capr, **jkw), 20),
+           "sylph_tpu/tpu/bucket_join.py:290", err, _cuda_ms(b2, 20),
            _cuda_ms(lambda: bj.join_codes_compact_plain(
                ikey, gidg, dk, dw, CAPR=capr, **jkw), 2),
-           B * CI * 12 + B * LW * 12 + B // TB * capr * CI * 4,
-           _live_compares(ikey, dw, nt, tile) * INT32_OPS_PER_COMPARE)
+           _join_bytes(ikey, dw, B // TB * capr * CI * 4,
+                       bj.join_counts(ikey, dk, dw, nt=nt, tile=tile)),
+           _live_compares(ikey, dw, nt, tile) * INT32_OPS_PER_COMPARE,
+           profiler_ms=_profiler_ms(b2, "join_kernel"),
+           **_join_extras("B2_join_codes_compact", bj._MODE_COMPACT, ikey,
+                          dk[None], dw[None], nt, tile))
 
     # B3 repack: the first pass over chunk 0's column-major code stream
     stream = got[0].t().contiguous().view(-1)
@@ -1614,25 +1721,38 @@ def _kernels(dc, loaded, launches, reads):
     got = bj.join_codes(ikey, gidg, ddk, ddw, **jkw)
     want = bj.join_codes_plain(ikey, gidg, ddk, ddw, **jkw)
     err = _same("B4_join_codes", (got,), (want,))
-    dLW = nt * dCS
+
+    def b4():
+        return bj.join_codes(ikey, gidg, ddk, ddw, **jkw)
+
     record("B4_join_codes", "join.cu", "sylph_tpu/tpu/bucket_join.py:241",
-           err, _cuda_ms(lambda: bj.join_codes(ikey, gidg, ddk, ddw, **jkw),
-                         20),
+           err, _cuda_ms(b4, 20),
            _cuda_ms(lambda: bj.join_codes_plain(ikey, gidg, ddk, ddw,
                                                 **jkw), 2),
-           B * CI * 16 + B * dLW * 12,
-           _live_compares(ikey, ddw, nt, tile) * INT32_OPS_PER_COMPARE)
+           _join_bytes(ikey, ddw, B * CI * 4,
+                       bj.join_counts(ikey, ddk, ddw, nt=nt, tile=tile)),
+           _live_compares(ikey, ddw, nt, tile) * INT32_OPS_PER_COMPARE,
+           profiler_ms=_profiler_ms(b4, "join_kernel"),
+           **_join_extras("B4_join_codes", bj._MODE_CODES, ikey, ddk[None],
+                          ddw[None], nt, tile))
 
     # B5 count grid, as the lossless redo runs it: flat cells at 4x CS
     fk, fw = bf.bucket_fill(pk, pw, base, width=g.width, B=B, CS=4 * CS)
     got = bj.join_counts(ikey, fk, fw)
     want = bj.join_counts_plain(ikey, fk, fw)
     err = _same("B5_join_counts", (got,), (want,))
+
+    def b5():
+        return bj.join_counts(ikey, fk, fw)
+
     record("B5_join_counts", "join.cu", "sylph_tpu/tpu/bucket_join.py:237",
-           err, _cuda_ms(lambda: bj.join_counts(ikey, fk, fw), 10),
+           err, _cuda_ms(b5, 10),
            _cuda_ms(lambda: bj.join_counts_plain(ikey, fk, fw), 1),
-           B * CI * 12 + B * 4 * CS * 12,
-           _live_compares(ikey, fw) * INT32_OPS_PER_COMPARE)
+           _join_bytes(ikey, fw, B * CI * 4),
+           _live_compares(ikey, fw) * INT32_OPS_PER_COMPARE,
+           profiler_ms=_profiler_ms(b5, "join_kernel"),
+           **_join_extras("B5_join_counts", bj._MODE_COUNTS, ikey,
+                          fk[None], fw[None]))
 
     # overflow 1: cells one lane deep drop entries; the engine's weight
     # conservation scalar must see it
@@ -1700,7 +1820,7 @@ def _batched_kernels(dc, tables, launches, record):
     S, _, LW = dk.shape
     capr = _capr(density, TB)
     jkw = dict(G=GE, nt=nt, tile=g.tile)
-    grids = B * CI * 8 + S * B * LW * 12         # index keys + cell grids
+    counts = bj.join_counts_batched(ikey, dk, dw, nt=nt, tile=g.tile)
     ops = sum(_live_compares(ikey, dw[s], nt, g.tile)
               for s in range(S)) * INT32_OPS_PER_COMPARE
     print(f"batched chunk 0: S={S}, P={P}, CS={CS}, LW={LW}, "
@@ -1722,20 +1842,22 @@ def _batched_kernels(dc, tables, launches, record):
              ikey, gidg, k, x, CAPR=capr, **jkw),
          lambda k, x: bj.join_codes_compact(ikey, gidg, k, x, CAPR=capr,
                                             **jkw),
-         grids + B * CI * 4 + S * B // TB * capr * CI * 4),
+         bj._MODE_COMPACT,
+         _join_bytes(ikey, dw, S * B // TB * capr * CI * 4, counts)),
         ("B4b_join_codes_batched", "sylph_tpu/tpu/grange.py:923",
          lambda k, x: bj.join_codes_batched(ikey, gidg, k, x, **jkw),
          lambda k, x: bj.join_codes_batched_plain(ikey, gidg, k, x, **jkw),
          lambda k, x: bj.join_codes(ikey, gidg, k, x, **jkw),
-         grids + B * CI * 4 + S * B * CI * 4),
+         bj._MODE_CODES, _join_bytes(ikey, dw, S * B * CI * 4, counts)),
         ("B5b_join_counts_batched", "sylph_tpu/tpu/grange.py:816",
          lambda k, x: bj.join_counts_batched(ikey, k, x, nt=nt,
                                              tile=g.tile),
          lambda k, x: bj.join_counts_batched_plain(ikey, k, x, nt=nt,
                                                    tile=g.tile),
          lambda k, x: bj.join_counts(ikey, k, x, nt=nt, tile=g.tile),
-         grids + S * B * CI * 4))
-    for name, replaces, kern, plain, single, nbytes in cases:
+         bj._MODE_COUNTS, _join_bytes(ikey, dw, S * B * CI * 4)))
+    del counts
+    for name, replaces, kern, plain, single, mode, nbytes in cases:
         got = kern(dk, dw)
         got = got if isinstance(got, tuple) else (got,)
         want = plain(dk, dw)
@@ -1744,7 +1866,10 @@ def _batched_kernels(dc, tables, launches, record):
         record(name, "join.cu", replaces, err,
                _cuda_ms(lambda: kern(dk, dw), 10),
                _cuda_ms(lambda: plain(dk, dw), 1), nbytes, ops,
-               n_launches=launches[name])
+               n_launches=launches[name],
+               profiler_ms=_profiler_ms(lambda: kern(dk, dw), "join_kernel",
+                                        10),
+               **_join_extras(name, mode, ikey, dk, dw, nt, g.tile))
 
 
 def _seed_kernels(device, reads, record):
@@ -1884,7 +2009,6 @@ def _dispatch_split(keys, row, cap):
     time reaches the event time, the event time of back-to-back calls is
     the host's, not the kernel's."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from sylph_tpu_torch.gpu import bucket_fill as bf
     from sylph_tpu_torch.gpu import seeding as sd
@@ -1900,18 +2024,7 @@ def _dispatch_split(keys, row, cap):
         for _ in range(50):
             fn()
         out[k]["enqueue_ms"] = (time.perf_counter() - t0) / 50 * 1e3
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                fn()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages() if "repack_kernel" in e.key]
-        total = sum(getattr(e, "device_time_total",
-                            getattr(e, "cuda_time_total", 0)) for e in dev)
-        n = sum(e.count for e in dev)
-        out[k]["device_ms"] = total / n / 1e3 if total and n else \
-            "not measured"
+        out[k]["device_ms"] = _profiler_ms(fn, "repack_kernel")
     print("B8 and B11 dispatch split: " + json.dumps(out))
 
 

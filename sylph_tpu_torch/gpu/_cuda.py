@@ -134,7 +134,8 @@ def library(name: str) -> ctypes.CDLL:
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {                 # C entry point -> argument types
     "fill_cells": [_P, _P] + [_I64] * 7 + [_P, _P, _P],
-    "join_launch": [_I32, _P, _P, _P, _P] + [_I64] * 9 + [_P, _P, _P],
+    "join_launch": [_I32, _P, _P, _P, _P] + [_I64] * 13 + [_P, _P, _P],
+    "join_occupancy": [_I32, _I64, _I64, _P],
     "repack_launch": [_P] + [_I64] * 4 + [_P, _P],
     "repack64_launch": [_P] + [_I64] * 4 + [_P, _P],
     "seed_launch": [_P, _P, _I64, _I32, _I32, ctypes.c_uint64, _P, _P, _P],

@@ -35,7 +35,12 @@ from .containment import genome_hist
 from .keys import HIST_H, KEY_PAD, SENT, key_hi
 
 _MODE_COUNTS, _MODE_CODES, _MODE_COMPACT = 0, 1, 2
-_JOIN_SMEM = 98304            # csrc/join.cu SMEM_BYTES
+# csrc/join.cu's geometry
+_JOIN_COLS = 128              # COLS: index columns a CTA, two a thread
+_JOIN_MAX_SG = 8              # MAX_SG: samples staged together
+_JOIN_SMEM_MAX = 232448       # SMEM_MAX: 227 KB of shared memory a CTA
+_JOIN_LANES = 512             # lanes a ring buffer holds, at least
+_JOIN_LANE_MAX = 8192         # the widest lane row taken
 
 
 def _cell_ids(hi: torch.Tensor, *, width: int, B: int, base: int,
@@ -237,9 +242,71 @@ def _check_join(ikey, gid, dk, dw, nt, tile):
         raise ValueError(f"lane width {LW} not a multiple of nt={nt}")
     if nt > 1 and not 1 <= nt * tile <= CI:
         raise ValueError(f"tiles nt={nt} x {tile} do not fit {CI} columns")
-    if LW * 12 > _JOIN_SMEM:
-        raise ValueError(f"lane width {LW} exceeds the compare kernel's "
-                         f"shared-memory stage ({_JOIN_SMEM // 12} lanes)")
+
+
+class JoinPlan(NamedTuple):
+    """One launch of csrc/join.cu: SG samples staged together (grid z =
+    ``n_sample_groups``), ``lane_buf`` lanes and ``list_cap`` lane lists a
+    ring buffer, ``smem`` bytes of dynamic shared memory a CTA, and
+    ``n_col_groups`` CTAs of 128 columns a TB-row block."""
+    SG: int
+    lane_buf: int
+    list_cap: int
+    smem: int
+    n_col_groups: int
+    n_sample_groups: int
+
+
+def _even(n: int) -> int:
+    """Slots of a lane list of n lanes in join.cu's buffers: n rounded up
+    to even (two keys a 16-byte load)."""
+    return n + (n & 1)
+
+
+def join_plan(S: int, CI: int, LW: int, nt: int, tile: int,
+              mode: int) -> JoinPlan:
+    """The launch plan of join.cu for S samples' [B, LW] cell grids
+    against [B, CI] index chunks in ``nt`` tiles of ``tile`` columns: as
+    many samples a group as fit 8,192 lanes a row (at most 8), two ring
+    buffers of at least 512 lanes (about 13 KB of shared memory, so 16 CTAs
+    of 64 threads, 32 warps, reside on a SM). Raises where the kernel
+    cannot take the shapes: it loads a thread's two columns as one pair,
+    so CI and (nt > 1) the tile must be even."""
+    nt = max(nt, 1)
+    if not 1 <= LW <= _JOIN_LANE_MAX or LW % nt or S < 1:
+        raise ValueError(f"lane width {LW} (nt={nt}, S={S}) not taken by "
+                         f"the compare kernel (at most {_JOIN_LANE_MAX} "
+                         "lanes a row, a multiple of nt)")
+    if CI % 2 or (nt > 1 and tile % 2):
+        raise ValueError(f"the compare kernel takes an even column count "
+                         f"and tile, not CI={CI}, tile={tile}")
+    cs_p = _even(LW // nt)
+    SG = min(_JOIN_MAX_SG, S, max(1, _JOIN_LANE_MAX // (nt * cs_p)))
+    lane_buf = max(_JOIN_LANES, SG * nt * cs_p)
+    list_cap = lane_buf // cs_p
+    smem = 2 * lane_buf * 12 + 2 * list_cap * 8
+    if mode == _MODE_COMPACT:
+        smem += SG * _JOIN_COLS * 4
+    if smem > _JOIN_SMEM_MAX:
+        raise ValueError(f"the compare kernel would need {smem} bytes of "
+                         f"shared memory a CTA ({LW} lanes in {nt} groups)")
+    return JoinPlan(SG, lane_buf, list_cap, smem, -(-CI // _JOIN_COLS),
+                    -(-S // SG))
+
+
+def join_occupancy(mode: int, plan: JoinPlan) -> dict:
+    """What the card reports for a launch of join.cu in ``mode`` at
+    ``plan``'s shared memory (card only): registers a thread, shared memory
+    a CTA (static + dynamic), threads a CTA and resident CTAs a SM."""
+    lib = _cuda.library("join")
+    info = (ctypes.c_int * 4)()
+    _cuda.check(lib, lib.join_occupancy(ctypes.c_int(mode),
+                                        ctypes.c_int64(plan.SG),
+                                        ctypes.c_int64(plan.smem), info),
+                "join_occupancy")
+    return dict(regs=info[0], smem_bytes=info[1] + plan.smem,
+                threads=info[3], ctas_per_sm=info[2],
+                warps_per_sm=info[2] * info[3] // 32)
 
 
 def _launch_join(mode, kname, ikey, gid, dk, dw, *, nt, tile, G=0, CAPR=0):
@@ -252,12 +319,16 @@ def _launch_join(mode, kname, ikey, gid, dk, dw, *, nt, tile, G=0, CAPR=0):
     CI = ikey.shape[1]
     TB = block_rows(B)
     dev = ikey.device
+    plan = join_plan(S, CI, LW, nt, tile, mode)
+    if ikey.data_ptr() % 16:
+        raise ValueError("the compare kernel loads index keys 16 bytes at "
+                         "a time: ikey must be 16-byte aligned")
     part = None
     if mode == _MODE_COMPACT:
         out = torch.empty((S, B // TB * CAPR, CI), dtype=torch.int32,
                           device=dev)
-        part = torch.empty((S, B // TB, -(-CI // 128)), dtype=torch.int32,
-                           device=dev)
+        part = torch.empty((S, B // TB, plan.n_col_groups),
+                           dtype=torch.int32, device=dev)
     else:
         out = torch.empty((S, B, CI), dtype=torch.int32, device=dev)
     lib = _cuda.library("join")
@@ -266,10 +337,10 @@ def _launch_join(mode, kname, ikey, gid, dk, dw, *, nt, tile, G=0, CAPR=0):
         rc = lib.join_launch(
             ctypes.c_int(mode), _cuda.ptr(ikey),
             _cuda.ptr(gid) if gid is not None else null,
-            _cuda.ptr(dk), _cuda.ptr(dw), ctypes.c_int64(S),
-            ctypes.c_int64(B), ctypes.c_int64(CI), ctypes.c_int64(LW),
-            ctypes.c_int64(TB), ctypes.c_int64(max(nt, 1)),
-            ctypes.c_int64(tile), ctypes.c_int64(G), ctypes.c_int64(CAPR),
+            _cuda.ptr(dk), _cuda.ptr(dw),
+            *(ctypes.c_int64(v) for v in (
+                S, B, CI, LW, TB, max(nt, 1), tile, G, CAPR, plan.SG,
+                plan.lane_buf, plan.list_cap, plan.smem)),
             _cuda.ptr(out), _cuda.ptr(part) if part is not None else null,
             _cuda.stream_ptr(ikey))
     _cuda.check(lib, rc, "join_launch")

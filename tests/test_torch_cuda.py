@@ -162,6 +162,197 @@ def test_join_batched_modes_match_plain(cuda, S, B, CI, LW, nt, tile, capr):
         assert int(one[1]) == int(got[1])
 
 
+def _main_geometry(seed, B, CS, S, nt=4, tile=256, ov=128, G=9):
+    """A chunk at the main path's column geometry (nt tiles of 256 slots
+    and 128 overflow columns): each tile holds its cell's sorted keys, 90-
+    100% full, the overflow region up to 30 keys at its start, pads -1 with
+    gid G; S samples' [B, nt*CS] cell grids filled as B1 fills them, about
+    CS/4 live lanes a cell, half of them index keys."""
+    rng = np.random.default_rng(seed)
+    width, base = 1 << 16, 1 << 20
+    subw = width // nt
+    CI = nt * tile + ov
+    keys = np.full((B, CI), -1, np.int64)
+    for b in range(B):
+        for t in range(nt):
+            n = int(rng.integers(tile * 9 // 10, tile + 1))
+            hi = base + b * width + t * subw + rng.integers(0, subw, size=n)
+            keys[b, t * tile:t * tile + n] = np.sort(
+                (hi << 32) | rng.integers(0, 2**32, size=n))
+        n = int(rng.integers(0, 30))
+        hi = base + b * width + rng.integers(0, width, size=n)
+        keys[b, nt * tile:nt * tile + n] = (hi << 32) | rng.integers(
+            0, 2**32, size=n)
+    gid = np.full((B, CI), G, np.int32)
+    live = keys != -1
+    gid[live] = rng.integers(0, G, size=int(live.sum()))
+    ikey = torch.from_numpy(keys)
+    n_smp = B * nt * CS // 4
+    dks, dws = [], []
+    for _ in range(S):
+        own = rng.choice(keys[live], size=n_smp // 2, replace=False)
+        hi = base + rng.integers(0, B * width, size=n_smp - own.size)
+        sk = np.unique(np.concatenate([own, (hi << 32) | rng.integers(
+            0, 2**32, size=hi.size)]))
+        sw = rng.integers(1, 90, size=sk.size).astype(np.int32)
+        dk, dw = bj._sample_to_buckets(
+            torch.from_numpy(sk), torch.from_numpy(sw), width=width, B=B,
+            CS=CS, base=base, nt=nt, subwidth=subw)
+        dks.append(dk.view(B, nt * CS))
+        dws.append(dw.view(B, nt * CS))
+    return ikey, torch.from_numpy(gid), torch.stack(dks), torch.stack(dws)
+
+
+def _adversarial_join(seed, S, nt, tile, ov, cs_t, B=128, G=9):
+    """Inputs that defeat unsafe shortcuts of the compare kernel: index pad
+    slots (key -1) with gids below G; in a fifth of the rows a lane of key
+    -1 and weight > 0 (elsewhere key -1 lanes weigh 0, as the fill's pads
+    do); zero weights between live lanes, on keys that match; a lane group
+    emptied in some rows; overflow columns all live in a quarter of the
+    rows, far past their share. -> ikey [B, CI] int64, gid [B, CI] int32,
+    dk [S, B, nt*cs_t] int64, dw int32 (nt = 1: CI = ov, one group)."""
+    rng = np.random.default_rng(seed)
+    CI = nt * tile + ov if nt > 1 else ov
+    t0 = nt * tile if nt > 1 else 0            # first overflow column
+    keys = rng.integers(0, 2**62, size=(B, CI))
+    pad = rng.random((B, CI)) < 0.3
+    full_ov = rng.random(B) < 0.25
+    pad[:, t0:] = (rng.random((B, CI - t0)) < 0.9) & ~full_ov[:, None]
+    keys[pad] = -1
+    gid = rng.integers(0, G + 2, size=(B, CI)).astype(np.int32)
+    LW = nt * cs_t
+    dk = np.empty((S, B, LW), np.int64)
+    dw = rng.integers(1, 90, size=(S, B, LW)).astype(np.int32)
+    rows = np.arange(B)[:, None]
+    for s in range(S):
+        for g in range(nt):
+            lanes = slice(g * cs_t, (g + 1) * cs_t)
+            col = np.where(rng.random((B, cs_t)) < 0.5,
+                           g * tile + rng.integers(0, max(tile, 1),
+                                                   size=(B, cs_t)),
+                           t0 + rng.integers(0, CI - t0, size=(B, cs_t)))
+            col = col if nt > 1 else t0 + rng.integers(0, CI, (B, cs_t))
+            dk[s, :, lanes] = keys[rows, col]
+        fresh = rng.random((B, LW)) < 0.3
+        dk[s][fresh] = rng.integers(0, 2**62, size=int(fresh.sum()))
+        dw[s][rng.random((B, LW)) < 0.4] = 0
+        dw[s][dk[s] == -1] = 0
+        neg = np.flatnonzero(rng.random(B) < 0.2)
+        lane = rng.integers(0, LW, size=neg.size)
+        dk[s, neg, lane] = -1
+        dw[s, neg, lane] = rng.integers(1, 90, size=neg.size)
+        empty = np.flatnonzero(rng.random(B) < 0.15)
+        for r, g in zip(empty, rng.integers(0, nt, size=empty.size)):
+            dw[s, r, g * cs_t:(g + 1) * cs_t] = 0
+    return keys, gid, dk, dw
+
+
+def _join_all_modes(cuda, ikey, gid, dk, dw, *, G, capr, nt, tile):
+    """Every mode of join.cu against its plain version: the batched modes
+    over all of dk's samples, the single-sample ones at S = 1."""
+    dev = [t.to(cuda) for t in (ikey, gid, dk, dw)]
+    kw = dict(nt=nt, tile=tile)
+    _equal((bj.join_counts_batched(dev[0], dev[2], dev[3], **kw),),
+           (bj.join_counts_batched_plain(ikey, dk, dw, **kw),))
+    _equal((bj.join_codes_batched(*dev, G=G, **kw),),
+           (bj.join_codes_batched_plain(ikey, gid, dk, dw, G=G, **kw),))
+    got = bj.join_codes_compact_batched(*dev, G=G, CAPR=capr, **kw)
+    want = bj.join_codes_compact_batched_plain(ikey, gid, dk, dw, G=G,
+                                               CAPR=capr, **kw)
+    _equal((got[0],), (want[0],))
+    assert int(got[1]) == int(want[1]) > 0
+    if dk.shape[0] == 1:
+        _equal((bj.join_counts(dev[0], dev[2][0], dev[3][0], **kw),
+                bj.join_codes(dev[0], dev[1], dev[2][0], dev[3][0], G=G,
+                              **kw)),
+               (bj.join_counts_plain(ikey, dk[0], dw[0], **kw),
+                bj.join_codes_plain(ikey, gid, dk[0], dw[0], G=G, **kw)))
+        one = bj.join_codes_compact(dev[0], dev[1], dev[2][0], dev[3][0],
+                                    G=G, CAPR=capr, **kw)
+        _equal(one, bj.join_codes_compact_plain(ikey, gid, dk[0], dw[0],
+                                                G=G, CAPR=capr, **kw))
+    return want
+
+
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("CS", [16, 40])
+def test_join_main_geometry_matches_plain(cuda, S, CS):
+    """B = 128 rows at the GTDB-scale chunk's columns (CI = 1,152: nt = 4
+    tiles of 256 and 128 overflow columns), cells from the fill at B2's
+    and B4's lane capacities, CAPR = 24: every mode, bit for bit."""
+    ikey, gid, dk, dw = _main_geometry(CS + S, 128, CS, S)
+    assert ikey.shape == (128, 1152) and dk.shape == (S, 128, 4 * CS)
+    _join_all_modes(cuda, ikey, gid, dk, dw, G=9, capr=24, nt=4, tile=256)
+
+
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("nt,tile,ov,cs_t", [
+    (4, 64, 64, 40),                   # warp-uniform groups, two chunks
+    (4, 16, 18, 5),                    # a CTA past the tiles too; odd lists
+    (1, 0, 136, 12)])                  # flat: every column sees every lane
+def test_join_adversarial_matches_plain(cuda, S, nt, tile, ov, cs_t):
+    """Pad slots with gids below G against live lanes of key -1, zero
+    weights between live lanes, empty lane groups and overflow columns far
+    fuller than their share: every mode, bit for bit."""
+    keys, gid, dk, dw = _adversarial_join(nt + tile + S, S, nt, tile, ov,
+                                          cs_t)
+    want = _join_all_modes(cuda, torch.from_numpy(keys),
+                           torch.from_numpy(gid), torch.from_numpy(dk),
+                           torch.from_numpy(dw), G=9, capr=8, nt=nt,
+                           tile=tile)
+    # pad slots coded live: the -1 lanes were seen
+    codes = bj.join_codes_batched_plain(
+        torch.from_numpy(keys), torch.from_numpy(gid), torch.from_numpy(dk),
+        torch.from_numpy(dw), G=9, nt=nt, tile=tile)
+    assert int((codes[:, torch.from_numpy(keys) == -1] != -1).sum()) > 0
+    assert int(want[1]) > int((want[0] != -1).sum())   # CAPR overflowed
+
+
+def test_join_rejects_odd_geometry_and_unaligned_keys(cuda):
+    """The compare kernel loads a thread's two columns as one 16-byte pair:
+    an odd column count, an odd tile or a key grid off 16 bytes raises,
+    with no launch, where the plain version on the CPU takes them."""
+    keys, gid, dk, dw = _adversarial_join(3, 1, 4, 17, 27, 5)
+    ikey, gid, dk, dw = (torch.from_numpy(t) for t in (keys, gid, dk, dw))
+    dev = [t.to(cuda) for t in (ikey, gid, dk[0], dw[0])]
+    n0 = dict(bj._cuda.LAUNCHES)
+    for nt, tile in ((4, 17), (1, 0)):            # odd tile; odd CI = 95
+        with pytest.raises(ValueError):
+            bj.join_counts(dev[0], dev[2], dev[3], nt=nt, tile=tile)
+        with pytest.raises(ValueError):
+            bj.join_codes(*dev, G=9, nt=nt, tile=tile)
+        with pytest.raises(ValueError):
+            bj.join_codes_compact(*dev, G=9, CAPR=8, nt=nt, tile=tile)
+        bj.join_codes_compact(ikey, gid, dk[0], dw[0], G=9, CAPR=8, nt=nt,
+                              tile=tile)
+    flat = torch.zeros(1 + 64 * 96, dtype=torch.int64, device=cuda)
+    off = flat[1:].view(64, 96)                   # 8 bytes past alignment
+    with pytest.raises(ValueError):
+        bj.join_counts(off, torch.zeros((64, 8), dtype=torch.int64,
+                                        device=cuda),
+                       torch.ones((64, 8), dtype=torch.int32, device=cuda))
+    assert dict(bj._cuda.LAUNCHES) == n0
+
+
+def test_join_compact_overflow_detected_on_card(cuda):
+    """B2's conservation check on the card: CAPR outside [1, TB] raises,
+    and a block whose columns hold more live codes than CAPR keeps CAPR of
+    them while n_live counts all (n_live != n_compacted)."""
+    B, CI, G = 64, 128, 3
+    ikey = torch.arange(B * CI, dtype=torch.int64).view(B, CI) + 7
+    gid = torch.ones((B, CI), dtype=torch.int32)
+    dk = ikey[:, :4].contiguous()
+    dw = torch.ones((B, 4), dtype=torch.int32)
+    dev = [t.to(cuda) for t in (ikey, gid, dk, dw)]
+    for capr in (0, 65):
+        with pytest.raises(ValueError):
+            bj.join_codes_compact(*dev, G=G, CAPR=capr)
+    got = bj.join_codes_compact(*dev, G=G, CAPR=24)
+    _equal(got, bj.join_codes_compact_plain(ikey, gid, dk, dw, G=G,
+                                            CAPR=24))
+    assert int(got[1]) == B * 4 and int((got[0] != -1).sum()) == 4 * 24
+
+
 @pytest.mark.parametrize("nt", [1, 4])
 def test_engine_hists_batched_on_card_matches_cpu(cuda, nt):
     """The batched grange sweep on the card (B1 fills, B2b, B3) equals the
@@ -276,6 +467,14 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         bj.join_counts(ikey, torch.zeros((4, 8), dtype=torch.int64),
                        torch.zeros((4, 8), dtype=torch.int32, device=cuda))
+    n0 = bj._cuda.LAUNCHES["B5_join_counts"]
+    for LW, nt in ((8200, 1), (12, 5)):   # past 8,192 lanes; LW % nt != 0
+        with pytest.raises(ValueError):
+            bj.join_counts(ikey, torch.zeros((4, LW), dtype=torch.int64,
+                                             device=cuda),
+                           torch.zeros((4, LW), dtype=torch.int32,
+                                       device=cuda), nt=nt, tile=1)
+    assert bj._cuda.LAUNCHES["B5_join_counts"] == n0
     with pytest.raises(ValueError):
         bf.repack2_flat(torch.zeros(16, dtype=torch.int32, device=cuda),
                         row=1024, cap=256)

@@ -22,12 +22,14 @@ from sylph_tpu.tpu.bucket_join import (_join_xla_tiled, _sample_to_buckets,
                                        build_bucketed_index)
 from sylph_tpu.tpu.u64 import from_u64_np
 from sylph_tpu_torch.gpu.bucket_fill import bucket_fill, repack1_flat
+from sylph_tpu_torch.gpu import bucket_join as bj
 from sylph_tpu_torch.gpu.bucket_join import (join_codes, join_codes_compact,
                                              join_counts, sample_cs)
 from sylph_tpu_torch.gpu.keys import from_pair_np
 from tests.test_bucket_fill import _case
 from tests.test_bucket_join import _world as _bucket_world
 from tests.test_fused_codes import _chunk_world, _tiled_world
+from tests.test_torch_cuda import _adversarial_join
 
 torch.set_num_threads(1)
 SENT = np.uint32(0xFFFFFFFF)
@@ -236,6 +238,93 @@ def test_join_counts_tiled_matches_xla():
     got = join_counts(_keys(ihi, ilo), _keys(dh, dl), _t(dw), nt=nt,
                       tile=tile)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _pair(keys):
+    u = np.asarray(keys).view(np.uint64)
+    return (jnp.asarray((u >> np.uint64(32)).astype(np.uint32)),
+            jnp.asarray((u & np.uint64(0xFFFFFFFF)).astype(np.uint32)))
+
+
+@pytest.mark.parametrize("nt,tile,ov,cs_t", [
+    (4, 64, 64, 40), (4, 16, 18, 5), (1, 0, 136, 12)])
+def test_join_pad_key_contract_matches_pallas(nt, tile, ov, cs_t,
+                                              monkeypatch):
+    """The contract the card's compare kernel keeps, pinned against the
+    Pallas kernels in interpret mode on inputs that defeat unsafe
+    shortcuts: index pad slots (key -1) with gids below G take live codes
+    from lanes of key -1 and weight > 0, and zero-weight lanes, empty lane
+    groups and overflow columns far past their share change nothing."""
+    monkeypatch.setattr(jgr, "_CODES_INTERPRET", True)
+    G = 9
+    keys, gid, dk, dw = _adversarial_join(nt + tile + 1, 1, nt, tile, ov,
+                                          cs_t)
+    jargs = (*_pair(keys), jnp.asarray(gid), *_pair(dk[0]),
+             jnp.asarray(dw[0]))
+    pargs = (torch.from_numpy(keys), torch.from_numpy(gid),
+             torch.from_numpy(dk[0]), torch.from_numpy(dw[0]))
+    want = jgr._codes_from_buckets(*jargs, G=G, H=jgr.HIST_H, nt=nt,
+                                   tile=tile)
+    got = join_codes(*pargs, G=G, nt=nt, tile=tile)
+    np.testing.assert_array_equal(got.numpy(), _codes_i32(want))
+    assert int((got[torch.from_numpy(keys) == -1] != -1).sum()) > 0
+    want, want_nl = jgr._codes_from_buckets_compact(
+        *jargs, G=G, H=jgr.HIST_H, CAPR=8, nt=nt, tile=tile)
+    got, got_nl = join_codes_compact(*pargs, G=G, CAPR=8, nt=nt, tile=tile)
+    np.testing.assert_array_equal(got.numpy(), _codes_i32(want))
+    assert int(got_nl) == int(want_nl) > int((got != -1).sum())
+
+
+# join.cu's launch plan at the main paths' shapes: CI = 1,152 (nt = 4 tiles
+# of 256, 128 overflow columns) in grange
+_MAIN_SHAPES = [
+    (1, 1152, 64, 4, 256, bj._MODE_COMPACT),   # B2: sample.sylsp, CS 16
+    (1, 1152, 160, 4, 256, bj._MODE_CODES),    # B4: deep.sylsp, CS 40
+    (1, 1152, 64, 1, 0, bj._MODE_COUNTS),      # B5: flat cells at 4x CS
+    (1, 128, 256, 1, 0, bj._MODE_COUNTS),      # B5': the bucket regime
+]
+
+
+@pytest.mark.parametrize("S,CI,LW,nt,tile,mode", _MAIN_SHAPES + [
+    (3, 1152, 144, 4, 256, bj._MODE_COMPACT),  # B2b: the cohort of three
+    (5, 136, 2048, 1, 0, bj._MODE_CODES),      # samples in groups
+    (1, 136, 8192, 1, 0, bj._MODE_COMPACT),    # the widest row
+    (2, 82, 20, 4, 16, bj._MODE_COUNTS)])      # a CTA past the tiles too
+def test_join_plan_fits_every_sample_group(S, CI, LW, nt, tile, mode):
+    """Every sample in one group; a ring buffer holds a row of every
+    sample of a group in either lane-list layout (a list a group, or one
+    of every lane), as join_launch requires; the CTA within 227 KB; the
+    column groups cover CI."""
+    plan = bj.join_plan(S, CI, LW, nt, tile, mode)
+    assert plan.smem <= 227 * 1024
+    groups = [range(z * plan.SG, min(S, (z + 1) * plan.SG))
+              for z in range(plan.n_sample_groups)]
+    assert [s for g in groups for s in g] == list(range(S))
+    cs = LW // nt
+    assert plan.SG * nt * (cs + cs % 2) <= plan.lane_buf
+    assert plan.SG * (LW + LW % 2) <= plan.lane_buf
+    assert plan.list_cap >= plan.lane_buf // (cs + cs % 2)
+    assert plan.n_col_groups * 128 >= CI > (plan.n_col_groups - 1) * 128
+
+
+@pytest.mark.parametrize("S,CI,LW,nt,tile,mode", _MAIN_SHAPES)
+def test_join_plan_main_paths_keep_32_warps(S, CI, LW, nt, tile, mode):
+    """At the main paths' shapes a CTA's shared memory (with the 1 KB the
+    card reserves a CTA, and 64 B of static arrays) lets 16 CTAs of 64
+    threads, 32 warps, reside in the H100 SM's 228 KB."""
+    plan = bj.join_plan(S, CI, LW, nt, tile, mode)
+    assert 16 * (plan.smem + 1024 + 64) <= 228 * 1024
+
+
+@pytest.mark.parametrize("S,CI,LW,nt,tile", [
+    (1, 128, 8200, 1, 0),                  # past 8,192 lanes a row
+    (1, 128, 12, 5, 8),                    # LW % nt != 0
+    (1, 1 << 20, 8192, 8192, 64),          # 8,192 one-lane groups
+    (1, 95, 8, 1, 0),                      # odd column count
+    (1, 4 * 17 + 28, 20, 4, 17)])          # odd tile
+def test_join_plan_rejects_what_the_kernel_cannot_take(S, CI, LW, nt, tile):
+    with pytest.raises(ValueError):
+        bj.join_plan(S, CI, LW, nt, tile, bj._MODE_COMPACT)
 
 
 # ---- B3: code-stream repack ------------------------------------------------

@@ -181,15 +181,15 @@ def test_tiny_tail_chunk_large_sample():
     """1,000 live k-mers in a 65,536-slot chunk against a 200,000-k-mer
     sample: B comes from the slots (1,024 buckets, 384 lanes) and not from
     the live count (16 buckets, about 12,600 lanes, past the compare
-    kernel's shared-memory stage); counts equal the host probe."""
+    kernel's 8,192 lanes a row); counts equal the host probe."""
     rng = np.random.default_rng(5)
     c = 50
     tail = _keys(rng, 1000, c)
     bt = tbj.build_bucketed_index(tail.view(np.int64), c, n_slots=1 << 16)
     keys, w, t_real, table = _sample_table(rng, tail, 400_000, c)
     CS = tbj.sample_cs(t_real, bt.n_buckets)
-    assert bt.n_buckets == 1024 and CS * 12 <= tbj._JOIN_SMEM
-    assert tbj.sample_cs(t_real, 16) * 12 > tbj._JOIN_SMEM
+    assert bt.n_buckets == 1024 and CS <= tbj._JOIN_LANE_MAX
+    assert tbj.sample_cs(t_real, 16) > tbj._JOIN_LANE_MAX
     got = tbj.bucket_join_counts(bt, torch.from_numpy(keys),
                                  torch.from_numpy(w), t_real).numpy()
     np.testing.assert_array_equal(got, _probe(tail, table))
