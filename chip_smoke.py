@@ -75,12 +75,16 @@ and drives the port's main path once, at database scale:
      3, for B2b, B4b and B5b, and each at S = 1 against B2, B4 and B5),
      bit for bit, plus overflow cases that must be detected; each kernel's
      time, its plain version's, its bound and, for B3 and B8, one library
-     call's. The rows of csrc/join.cu (B2, B4, B5, B5', B2b, B4b, B5b) also
-     carry torch.profiler's device time a launch and the launch's
-     occupancy as the card reports it (registers, shared memory, resident
-     CTAs a SM); a line of its own beside each gives the compares the
-     kernel issues (per warp, from its loop bounds) and those the data
-     needs, both computed from the inputs, not measured.
+     call's. The rows of csrc/join.cu (B2, B4, B5, B5', B2b, B4b, B5b),
+     csrc/seed.cu (B7 on reads and on genome rows) and csrc/fill.cu (B1 on
+     the grange slices of sample.sylsp and deep.sylsp and on the whole
+     range) also carry torch.profiler's device time a launch (a time
+     under about 0.05 ms by CUDA events is mostly the host's) and the
+     launch's occupancy as the card reports it (registers, shared memory,
+     resident CTAs a SM; B1 also its cells a block); a line of its own
+     beside each join row gives the compares the kernel issues (per warp,
+     from its loop bounds) and those the data needs, both computed from
+     the inputs, not measured.
 
   6. The one-shot device pipeline (sylph_tpu_torch/gpu/pipeline.py), each
      run with the launch counts set to 0 just before it: (q) bench.py's
@@ -548,19 +552,49 @@ def _tsv_rows(tsv):
     return rows
 
 
+def _same_sketch(a, b) -> bool:
+    """Two sketches with equal k-mers in order, counts and mean read
+    length."""
+    return bool(np.array_equal(a.kmers, b.kmers)
+                and np.array_equal(a.counts, b.counts)
+                and a.mean_read_length == b.mean_read_length)
+
+
+def _sketch_diff(card, host):
+    """Where two sketches of one read set differ: sizes, counted k-mers,
+    mean read lengths and the k-mers only one of them holds."""
+    only_card = np.setdiff1d(card.kmers, host.kmers)
+    only_host = np.setdiff1d(host.kmers, card.kmers)
+    return dict(kmers=[int(card.kmers.size), int(host.kmers.size)],
+                counted=[int(card.counts.sum()), int(host.counts.sum())],
+                mean_read_length=[float(card.mean_read_length),
+                                  float(host.mean_read_length)],
+                only_card=int(only_card.size), only_host=int(only_host.size),
+                first_only_card=[int(x) for x in only_card[:4]],
+                first_only_host=[int(x) for x in only_host[:4]])
+
+
 def _check_reads(dc, reads, card, host_path, abundant, tsv, per, ingest):
     """Checks (d)-(g) of the raw-read sample, and its stage split. Returns
     reads_host.sylsp's (sorted kmers, counts, oracle histogram)."""
     import torch
 
+    from sylph_tpu_torch.core.sketch_reads import sketch_sequences
     from sylph_tpu_torch.io import sylformat
 
     host = sylformat.read_sylsp(host_path)
-    if not (np.array_equal(card.kmers, host.kmers)
-            and np.array_equal(card.counts, host.counts)
-            and card.mean_read_length == host.mean_read_length):
+    if not _same_sketch(card, host):
+        # the read set sketched once more on each side says which side
+        # gave the odd sketch, and whether it does so again
+        card2 = sketch_sequences(reads, C, K, "card2", device=dc.device)
+        host2 = sketch_sequences(reads, C, K, "host2", device=None)
         _fail("(d) the card's sketch of the reads differs from the host "
-              "seeder's")
+              "seeder's: " + json.dumps(dict(
+                  _sketch_diff(card, host),
+                  card_again_equals=dict(card=_same_sketch(card2, card),
+                                         host=_same_sketch(card2, host)),
+                  host_again_equals=dict(card=_same_sketch(host2, card),
+                                         host=_same_sketch(host2, host)))))
     print(f"check (d): card sketch == host sketch ({card.kmers.size} "
           f"k-mers in insertion order, {int(card.counts.sum())} counted, "
           f"mean read length {card.mean_read_length})")
@@ -1046,7 +1080,9 @@ def _small_db_kernels(dc, smp, paths, launches, sk_launches, record):
            _cuda_ms(lambda: bj._sample_to_buckets(skey, sw, base=0, **fkw),
                     3),
            _live_entries(sw) * 12 + B * CS * 12, 0,
-           n_launches=launches["B1_fill"])
+           n_launches=launches["B1_fill"],
+           **_fill_extras(lambda: bf.bucket_fill(skey, sw, 0, **fkw),
+                          skey.shape[0], B, CS))
     dk, dw = got
     ikey = ch.key
     got = bj.bucket_counts(ikey, dk, dw)
@@ -1091,7 +1127,8 @@ def _small_db_kernels(dc, smp, paths, launches, sk_launches, record):
            _cuda_ms(lambda: sd.seed_packed_plain(packed, lens, c=C, k=K), 3),
            N * L // 4 + N * 4 + N * L * 9,
            _live_windows(lens, K) * INT32_OPS_PER_WINDOW,
-           n_launches=sk_launches["B7_seed"])
+           n_launches=sk_launches["B7_seed"],
+           **_seed_extras(lambda: sd.seed_packed(packed, lens, c=C, k=K)))
 
 
 # ---- the one-shot device pipeline ----------------------------------------
@@ -1560,21 +1597,27 @@ def _profiler_ms(fn, kernel: str, reps: int = 20):
     torch.profiler over ``reps`` calls of one launch each ("not measured"
     where it shows no device time or captured another number of
     launches)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from sylph_tpu_torch.gpu._cuda import device_ms
+    ms = device_ms(fn, kernel, reps)
+    return "not measured" if ms is None else ms
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if kernel in e.key]
-    total = sum(getattr(e, "device_time_total",
-                        getattr(e, "cuda_time_total", 0)) for e in dev)
-    n = sum(e.count for e in dev)
-    return total / n / 1e3 if total and n == reps else "not measured"
+
+def _seed_extras(fn) -> dict:
+    """A B7 row's torch.profiler device time and the card's occupancy
+    readout for csrc/seed.cu."""
+    from sylph_tpu_torch.gpu import seeding as sd
+    return dict(profiler_ms=_profiler_ms(fn, "seed_kernel"),
+                occupancy=sd.seed_occupancy())
+
+
+def _fill_extras(fn, P: int, NC: int, CS: int) -> dict:
+    """A B1 row's torch.profiler device time, and the card's occupancy
+    readout and cells a block of its launch plan."""
+    from sylph_tpu_torch.gpu import bucket_fill as bf
+    cpb = bf.fill_plan(P, NC, CS)
+    return dict(profiler_ms=_profiler_ms(fn, "fill_cells_kernel"),
+                occupancy=dict(bf.fill_occupancy(cpb, CS),
+                               cells_per_block=cpb))
 
 
 def _live_windows(lens, k: int) -> int:
@@ -1670,7 +1713,9 @@ def _kernels(dc, loaded, launches, reads):
            _cuda_ms(lambda: bf.bucket_fill(pk, pw, base, **fkw), 50),
            _cuda_ms(lambda: bj._sample_to_buckets(pk, pw, base=base, **fkw),
                     5),
-           _live_entries(pw) * 12 + NC * CS * 12, 0)
+           _live_entries(pw) * 12 + NC * CS * 12, 0,
+           **_fill_extras(lambda: bf.bucket_fill(pk, pw, base, **fkw),
+                          P, NC, CS))
     dk = got[0].view(B, nt * CS)
     dw = got[1].view(B, nt * CS)
     LW = nt * CS
@@ -1715,8 +1760,18 @@ def _kernels(dc, loaded, launches, reads):
 
     # B4 full code grid, on chunk 0's slice of the dense deep.sylsp
     dpk, dpw, _dP, dCS, _dd = slice0("deep")
-    dfk, dfw = bf.bucket_fill(dpk, dpw, base, width=g.width, B=B, CS=dCS,
-                              nt=nt, subwidth=sub)
+    dkw = dict(width=g.width, B=B, CS=dCS, nt=nt, subwidth=sub)
+    dfk, dfw = bf.bucket_fill(dpk, dpw, base, **dkw)
+    err = _same("B1_fill (deep)", (dfk, dfw),
+                bj._sample_to_buckets(dpk, dpw, base=base, **dkw))
+    record("B1_fill (deep)", "fill.cu", "sylph_tpu/tpu/bucket_fill.py:278",
+           err, _cuda_ms(lambda: bf.bucket_fill(dpk, dpw, base, **dkw), 50),
+           _cuda_ms(lambda: bj._sample_to_buckets(dpk, dpw, base=base,
+                                                  **dkw), 5),
+           _live_entries(dpw) * 12 + NC * dCS * 12, 0,
+           n_launches=launches["B1_fill"],
+           **_fill_extras(lambda: bf.bucket_fill(dpk, dpw, base, **dkw),
+                          dpk.shape[0], NC, dCS))
     ddk, ddw = dfk.view(B, nt * dCS), dfw.view(B, nt * dCS)
     got = bj.join_codes(ikey, gidg, ddk, ddw, **jkw)
     want = bj.join_codes_plain(ikey, gidg, ddk, ddw, **jkw)
@@ -1903,7 +1958,9 @@ def _seed_kernels(device, reads, record):
                    _cuda_ms(lambda: sd.seed_packed_plain(packed, lens, c=c,
                                                          k=k), 3),
                    N * L // 4 + N * 4 + N * L * 9,
-                   _live_windows(lens, k) * INT32_OPS_PER_WINDOW)
+                   _live_windows(lens, k) * INT32_OPS_PER_WINDOW,
+                   **_seed_extras(lambda: sd.seed_packed(packed, lens, c=c,
+                                                         k=k)))
 
     # B8: the batch's first condense_stream pass, as the main path runs it
     rows_ = ds._seed_rows(packed, lens, C, K, L)

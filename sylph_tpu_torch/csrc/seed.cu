@@ -18,73 +18,214 @@
 // 64-bit mix, the canonical choice and the threshold test are about 45
 // int32 instructions a window (about 45 us at the INT32 issue rate).
 //
-// Design: one block of 256 threads per read row stages the row's words in
-// shared memory (plus two zero words, so windows past L read zeros); each
-// thread takes windows i, i+256, ... A window of k <= 31 bases spans at
-// most three words: one funnel shift gives the window's bases LSB-first in
-// a uint64 v. The reverse complement is (~v) masked to 2k bits; the forward
-// k-mer is v's 2-bit groups reversed (bit reverse, then swap the bits of
-// each pair), shifted down by 64 - 2k. No per-base loop.
+// Design. The first version ran a block of 256 threads a row, one window a
+// thread behind a block barrier: 65,536 tiny blocks, no overlap of a
+// block's loads with its mixes and one independent mix a thread (0.1122 ms
+// at [65536, 256], 41% of the bound). Here a warp owns a piece of 256
+// bases of one row (a whole 150-bp read row): lanes 0-17 load the piece's
+// 16 words and the 2-word halo (zeros past L) in one coalesced load and
+// keep them in registers; a window's three words arrive by __shfl_sync, so
+// nothing goes through shared memory and no barrier is needed. Each lane
+// mixes 8 windows, two adjacent windows in each of 4 steps, and stores
+// their hashes as one 16-byte store (a warp writes 512 contiguous bytes a
+// step); the keep bits are gathered by ballots and each lane stores the 8
+// keep bytes of windows 8*lane.. as one 8-byte store. A grid of the blocks
+// resident on the card (the wrapper works it out once per device) strides
+// over the pieces (no wave tail), and a warp loads its next piece's words
+// while it mixes the current one. The window
+// algebra: one funnel shift gives the window's bases LSB-first in a uint64
+// v; the reverse complement is (~v) masked to 2k bits, the forward k-mer is
+// v's 2-bit groups reversed (bit reverse, then swap the bits of each pair),
+// shifted down by 64 - 2k. No per-base loop.
+//
+// Measured (chip_smoke.py's "B7_seed" rows, torch.profiler device time on
+// an NVIDIA H100 80GB HBM3 at a 700 W power limit): 0.0591 ms at [65536,
+// 256] (78.5% of the bound: 155 MB moved at 2.63 TB/s; kbench's identity
+// copy moves 2.92 TB/s by the same timer in python -m
+// sylph_tpu_torch.kernel_ab), 0.0303 ms on [2048, 4096] genome rows. The
+// compiled mix takes more instructions than the 45 a window above
+// (kernel_ab prints the SASS counts); trial builds with fewer
+// instructions, or with other register budgets, were no faster, so the
+// stores may be what holds it, but no measurement here shows that.
 
 #include "common.cuh"
 
-#define SEED_THREADS 256
+#define SEED_THREADS 256                  // 8 warps a block
+#define SEED_WARPS (SEED_THREADS / 32)
+#define SEED_MIN_BLOCKS 4                 // at most 64 registers a thread
+#define PIECE 256                         // bases (windows) a warp takes
+#define PIECE_WORDS (PIECE / 16)          // plus a 2-word halo
+#define FULL 0xffffffffu
 
 namespace {
 
 __device__ __forceinline__ uint64_t wang_mix_bugged(uint64_t key) {
-  key = ~(key + (key << 21));     // the reference's bug: NOT(k + k<<21)
+  key = ~(key * 0x200001ULL);     // the reference's bug: NOT(k + k<<21)
   key = key ^ (key >> 24);
-  key = key + (key << 3) + (key << 8);
+  key = key * 265ULL;             // k + (k << 3) + (k << 8)
   key = key ^ (key >> 14);
-  key = key + (key << 2) + (key << 4);
+  key = key * 21ULL;              // k + (k << 2) + (k << 4)
   key = key ^ (key >> 28);
-  key = key + (key << 31);
-  return key;
+  return key * 0x80000001ULL;     // k + (k << 31)
 }
 
-__global__ void __launch_bounds__(SEED_THREADS)
+// The 32 bases from bit s (even, < 32) of w0 on through w1 and w2,
+// LSB-first.
+__device__ __forceinline__ uint64_t bases_at(uint32_t w0, uint32_t w1,
+                                             uint32_t w2, int s) {
+  return (uint64_t)__funnelshift_r(w0, w1, s) |
+         ((uint64_t)__funnelshift_r(w1, w2, s) << 32);
+}
+
+// The hash of the window whose bases start at bit s of w0: the reverse
+// complement is (~v) masked to 2k bits, the forward k-mer v's 2-bit groups
+// reversed (bit reverse, then swap the bits of each pair), shifted down by
+// 64 - 2k.
+__device__ __forceinline__ uint64_t window_hash(uint32_t w0, uint32_t w1,
+                                                uint32_t w2, int s,
+                                                uint64_t kmask, int down) {
+  const uint64_t v = bases_at(w0, w1, w2, s);
+  const uint64_t rc = ~v & kmask;
+  uint64_t f = __brevll(v);
+  f = ((f >> 1) & 0x5555555555555555ULL) | ((f & 0x5555555555555555ULL) << 1);
+  f >>= down;
+  return wang_mix_bugged(f < rc ? f : rc);
+}
+
+// Bits 0-3 of x to bytes 0-3 of a word (each byte 0 or 1).
+__device__ __forceinline__ uint32_t spread4(uint32_t x) {
+  return (x * 0x00204081u) & 0x01010101u;
+}
+
+// Keep bytes of 4 adjacent windows from 2 even-window bits (e) and 2
+// odd-window bits (o): e0 o0 e1 o1.
+__device__ __forceinline__ uint32_t keep_bytes(uint32_t e, uint32_t o) {
+  return spread4((e & 1u) | ((o & 1u) << 1) | ((e & 2u) << 1) |
+                 ((o & 2u) << 2));
+}
+
+__global__ void __launch_bounds__(SEED_THREADS, SEED_MIN_BLOCKS)
 seed_kernel(const uint32_t* __restrict__ packed,
-            const int* __restrict__ lengths, int L, int k,
-            unsigned long long thr, long long* __restrict__ hash,
+            const int* __restrict__ lengths, long long n_rows, int nw,
+            int k, unsigned long long thr, long long* __restrict__ hash,
             uint8_t* __restrict__ keep) {
-  extern __shared__ uint32_t words[];
-  const long long row = blockIdx.x;
-  const int nw = L >> 4;
-  const uint32_t* src = packed + row * nw;
-  for (int j = threadIdx.x; j < nw + 2; j += SEED_THREADS)
-    words[j] = j < nw ? src[j] : 0u;
-  __syncthreads();
-  const int len = lengths[row];
+  const int lane = threadIdx.x & 31;
+  const int L = nw * 16;
+  const int pieces = (nw + PIECE_WORDS - 1) / PIECE_WORDS;
+  const long long units = n_rows * pieces;
+  const long long stride = (long long)gridDim.x * SEED_WARPS;
+  const long long stride_r = stride / pieces;
+  const int stride_p = static_cast<int>(stride - stride_r * pieces);
   const uint64_t kmask = (1ULL << (2 * k)) - 1ULL;
   const int down = 64 - 2 * k;
-  long long* h_out = hash + row * L;
-  uint8_t* k_out = keep + row * L;
-  for (int i = threadIdx.x; i < L; i += SEED_THREADS) {
-    const int w = i >> 4, s = 2 * (i & 15);
-    const uint64_t lo64 = (uint64_t)words[w] | ((uint64_t)words[w + 1] << 32);
-    uint64_t v = lo64 >> s;
-    if (s) v |= (uint64_t)words[w + 2] << (64 - s);
-    const uint64_t rc = ~v & kmask;
-    uint64_t f = __brevll(v);
-    f = ((f >> 1) & 0x5555555555555555ULL) | ((f & 0x5555555555555555ULL) << 1);
-    f >>= down;
-    const uint64_t h = wang_mix_bugged(f < rc ? f : rc);
-    h_out[i] = (long long)h;
-    k_out[i] = (h < thr && i + k <= len) ? 1 : 0;
+
+  long long u = (long long)blockIdx.x * SEED_WARPS + (threadIdx.x >> 5);
+  long long row = u / pieces;               // this warp's first unit
+  int p = static_cast<int>(u - row * pieces);
+  // the piece's words (lane j < 18: word 16p + j, 0 past the row) and the
+  // row's length, loaded one unit ahead
+  auto load = [&](long long r, int q, uint32_t& w, int& n) {
+    const int j = q * PIECE_WORDS + lane;
+    w = (lane < PIECE_WORDS + 2 && j < nw) ? __ldg(packed + r * nw + j) : 0u;
+    n = __ldg(lengths + r);
+  };
+  uint32_t word = 0;
+  int len = 0;
+  if (u < units) load(row, p, word, len);
+  while (u < units) {
+    const uint32_t cur = word;
+    const int clen = len;
+    const long long crow = row;
+    const int cp = p;
+    u += stride;
+    row += stride_r;
+    p += stride_p;
+    if (p >= pieces) {
+      p -= pieces;
+      ++row;
+    }
+    if (u < units) load(row, p, word, len);
+
+    const int i0 = cp * PIECE;                 // the piece's first window
+    const int rem = min(PIECE, L - i0);        // its windows (a multiple of 16)
+    const uint32_t nx1 = __shfl_down_sync(FULL, cur, 1);   // word j + 1
+    const uint32_t nx2 = __shfl_down_sync(FULL, cur, 2);   // word j + 2
+    long long* hrow = hash + crow * L + i0;
+    unsigned ev[4], od[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int b = t * 64 + 2 * lane;         // the lane's even window
+      const int src = b >> 4;
+      const uint32_t a0 = __shfl_sync(FULL, cur, src);
+      const uint32_t a1 = __shfl_sync(FULL, nx1, src);
+      const uint32_t a2 = __shfl_sync(FULL, nx2, src);
+      const int s = 2 * (b & 15);
+      const uint64_t h0 = window_hash(a0, a1, a2, s, kmask, down);
+      const uint64_t h1 = window_hash(a0, a1, a2, s + 2, kmask, down);
+      const bool in = b < rem;
+      if (in)
+        *reinterpret_cast<longlong2*>(hrow + b) =
+            make_longlong2((long long)h0, (long long)h1);
+      const int i = i0 + b;
+      ev[t] = __ballot_sync(FULL, in && h0 < thr && i + k <= clen);
+      od[t] = __ballot_sync(FULL, in && h1 < thr && i + 1 + k <= clen);
+    }
+    // windows 8*lane .. 8*lane + 7: step lane / 8, lanes 4*(lane % 8) ..
+    if (8 * lane < rem) {
+      const int t = lane >> 3, sh = 4 * (lane & 7);
+      const unsigned e =
+          ((t == 0 ? ev[0] : t == 1 ? ev[1] : t == 2 ? ev[2] : ev[3]) >> sh);
+      const unsigned o =
+          ((t == 0 ? od[0] : t == 1 ? od[1] : t == 2 ? od[2] : od[3]) >> sh);
+      *reinterpret_cast<uint2*>(keep + crow * L + i0 + 8 * lane) =
+          make_uint2(keep_bytes(e, o), keep_bytes(e >> 2, o >> 2));
+    }
   }
 }
+
+const void* seed_fn() { return reinterpret_cast<const void*>(&seed_kernel); }
 
 }  // namespace
 
+// hash [n, L] and keep [n, L] of n rows of L/16 packed words; L a
+// multiple of 16 and at least 16, 1 <= k <= 31; both outputs 16-byte
+// aligned (the wrapper allocates them). grid: the blocks resident on the
+// card at once (gpu/seeding.py::_seed_grid, from seed_occupancy), the most
+// the launch takes; its warps stride over the row pieces.
 extern "C" int seed_launch(const uint32_t* packed, const int* lengths,
                            long long n, int L, int k, unsigned long long thr,
-                           long long* hash, uint8_t* keep, void* stream) {
-  if (n > 0) {
-    const size_t smem = (size_t)((L >> 4) + 2) * sizeof(uint32_t);
-    seed_kernel<<<static_cast<unsigned>(n), SEED_THREADS, smem,
-                  static_cast<cudaStream_t>(stream)>>>(packed, lengths, L, k,
-                                                       thr, hash, keep);
+                           long long* hash, uint8_t* keep, long long grid,
+                           void* stream) {
+  if (L < 16 || L % 16 || k < 1 || k > 31 || grid < 1 ||
+      grid >= (1LL << 31) ||
+      reinterpret_cast<unsigned long long>(hash) % 16 ||
+      reinterpret_cast<unsigned long long>(keep) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  const int nw = L >> 4;
+  const long long units = n * ((nw + PIECE_WORDS - 1) / PIECE_WORDS);
+  const long long need = (units + SEED_WARPS - 1) / SEED_WARPS;
+  seed_kernel<<<static_cast<unsigned>(need < grid ? need : grid),
+                SEED_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      packed, lengths, n, nw, k, thr, hash, keep);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch's occupancy as the card reports it: registers a thread,
+// static shared memory a block, resident blocks a SM and threads a block
+// -> info[0..3].
+extern "C" int seed_occupancy(int* info) {
+  cudaFuncAttributes attr;
+  int e = static_cast<int>(cudaFuncGetAttributes(&attr, seed_fn()));
+  if (e != 0) return e;
+  int per_sm = 0;
+  e = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, seed_fn(), SEED_THREADS, 0));
+  if (e != 0) return e;
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.sharedSizeBytes);
+  info[2] = per_sm;
+  info[3] = SEED_THREADS;
+  return 0;
 }

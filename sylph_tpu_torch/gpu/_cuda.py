@@ -133,12 +133,15 @@ def library(name: str) -> ctypes.CDLL:
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {                 # C entry point -> argument types
-    "fill_cells": [_P, _P] + [_I64] * 7 + [_P, _P, _P],
+    "fill_cells": [_P, _P] + [_I64] * 8 + [_P, _P, _P],
+    "fill_occupancy": [_I64, _I64, _P],
     "join_launch": [_I32, _P, _P, _P, _P] + [_I64] * 13 + [_P, _P, _P],
     "join_occupancy": [_I32, _I64, _I64, _P],
     "repack_launch": [_P] + [_I64] * 4 + [_P, _P],
     "repack64_launch": [_P] + [_I64] * 4 + [_P, _P],
-    "seed_launch": [_P, _P, _I64, _I32, _I32, ctypes.c_uint64, _P, _P, _P],
+    "seed_launch": [_P, _P, _I64, _I32, _I32, ctypes.c_uint64, _P, _P,
+                    _I64, _P],
+    "seed_occupancy": [_P],
     "seed_pack_launch": [_P, _P, _I64, _I32, _I32, ctypes.c_uint64, _I32,
                          _I32, _P, _P],
     "seed_pack_t_launch": [_P, _P, _I64, _I32, _I32, ctypes.c_uint64, _I32,
@@ -162,6 +165,38 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def occupancy(lib: ctypes.CDLL, entry: str, *args, smem: int = 0) -> dict:
+    """What the card reports for a launch of a kernel through the C entry
+    ``entry(*args, int info[4])`` at ``smem`` bytes of dynamic shared
+    memory (card only): registers a thread, shared memory a CTA (static +
+    dynamic), threads a CTA and resident CTAs a SM."""
+    info = (ctypes.c_int * 4)()
+    check(lib, getattr(lib, entry)(*args, info), entry)
+    return dict(regs=info[0], smem_bytes=info[1] + smem, threads=info[3],
+                ctas_per_sm=info[2], warps_per_sm=info[2] * info[3] // 32)
+
+
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Device ms a launch of the kernel whose name holds ``kernel``, by
+    torch.profiler over ``reps`` calls of ``fn`` that launch it once each
+    (card only; None where the profiler shows no device time or caught
+    another number of launches). A kernel under about 0.05 ms is timed
+    this way: CUDA events around its calls then mostly time the host."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0)) for e in ev)
+    n = sum(e.count for e in ev)
+    return total / n / 1e3 if total and n == reps else None
 
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:

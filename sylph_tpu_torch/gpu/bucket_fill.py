@@ -20,6 +20,37 @@ from .bucket_join import _sample_to_buckets
 
 _LANES = 256
 _WPB = 8          # windows per block of the JAX kernel: output length unit
+# csrc/fill.cu's geometry
+_FILL_SLOTS = 2048            # output slots a block stages, aimed at
+_FILL_ENTRIES = 1024          # slice entries a block takes, aimed at
+_FILL_SMEM_MAX = 232384       # SMEM_MAX: 227 KB a block less 64 B static
+
+
+def fill_plan(P: int, NC: int, CS: int) -> int:
+    """Cells a block of csrc/fill.cu for a P-entry slice and [NC, CS]
+    grids: from the staged slots (about 2,048, 24 KB) and the mean entries
+    a cell (about 1,024 entries a block, P / NC), a multiple of 4 where it
+    can be (so every block's region starts on 16 bytes, whatever CS).
+    Raises where the kernel cannot take the shapes: one cell's CS slots
+    (12 B each, rounded up to 16-byte runs, and its 8-byte live count) past
+    227 KB of shared memory."""
+    if CS < 1 or NC < 0 or P < 0:
+        raise ValueError(f"bad fill geometry P={P} NC={NC} CS={CS}")
+    if 12 * CS + 28 > _FILL_SMEM_MAX:
+        raise ValueError(f"the fill kernel cannot stage a cell of CS={CS} "
+                         "slots in a block's shared memory")
+    cpb = _FILL_SLOTS // CS
+    if P > NC:
+        cpb = min(cpb, int(_FILL_ENTRIES * NC / P))
+    cpb = max(1, min(cpb, NC))
+    return cpb - cpb % 4 if cpb >= 4 else cpb
+
+
+def fill_occupancy(cpb: int, CS: int) -> dict:
+    """What the card reports for a launch of csrc/fill.cu at ``cpb`` cells
+    of CS slots a block (card only); see ``_cuda.occupancy``."""
+    return _cuda.occupancy(_cuda.library("fill"), "fill_occupancy",
+                           ctypes.c_int64(cpb), ctypes.c_int64(CS))
 
 
 def bucket_fill(skey: torch.Tensor, sw: torch.Tensor, base: int, *,
@@ -45,16 +76,18 @@ def bucket_fill(skey: torch.Tensor, sw: torch.Tensor, base: int, *,
         raise ValueError(f"bad geometry CS={CS} width={width} nt={nt} "
                          f"subwidth={subwidth}")
     NC = B * max(nt, 1)
+    P = skey.shape[0]
+    cpb = fill_plan(P, NC, CS)
     out_k = torch.empty((NC, CS), dtype=torch.int64, device=dev)
     out_w = torch.empty((NC, CS), dtype=torch.int32, device=dev)
     lib = _cuda.library("fill")
     with torch.cuda.device(dev):
         rc = lib.fill_cells(
-            _cuda.ptr(skey), _cuda.ptr(sw), ctypes.c_int64(skey.shape[0]),
+            _cuda.ptr(skey), _cuda.ptr(sw), ctypes.c_int64(P),
             ctypes.c_int64(int(base)), ctypes.c_int64(width),
             ctypes.c_int64(max(nt, 1)), ctypes.c_int64(max(subwidth, 1)),
-            ctypes.c_int64(CS), ctypes.c_int64(NC), _cuda.ptr(out_k),
-            _cuda.ptr(out_w), _cuda.stream_ptr(skey))
+            ctypes.c_int64(CS), ctypes.c_int64(NC), ctypes.c_int64(cpb),
+            _cuda.ptr(out_k), _cuda.ptr(out_w), _cuda.stream_ptr(skey))
     _cuda.check(lib, rc, "fill_cells")
     _cuda.count_launch("B1_fill")
     return out_k, out_w

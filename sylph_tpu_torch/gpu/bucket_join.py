@@ -298,15 +298,9 @@ def join_occupancy(mode: int, plan: JoinPlan) -> dict:
     """What the card reports for a launch of join.cu in ``mode`` at
     ``plan``'s shared memory (card only): registers a thread, shared memory
     a CTA (static + dynamic), threads a CTA and resident CTAs a SM."""
-    lib = _cuda.library("join")
-    info = (ctypes.c_int * 4)()
-    _cuda.check(lib, lib.join_occupancy(ctypes.c_int(mode),
-                                        ctypes.c_int64(plan.SG),
-                                        ctypes.c_int64(plan.smem), info),
-                "join_occupancy")
-    return dict(regs=info[0], smem_bytes=info[1] + plan.smem,
-                threads=info[3], ctas_per_sm=info[2],
-                warps_per_sm=info[2] * info[3] // 32)
+    return _cuda.occupancy(_cuda.library("join"), "join_occupancy",
+                           ctypes.c_int(mode), ctypes.c_int64(plan.SG),
+                           ctypes.c_int64(plan.smem), smem=plan.smem)
 
 
 def _launch_join(mode, kname, ikey, gid, dk, dw, *, nt, tile, G=0, CAPR=0):

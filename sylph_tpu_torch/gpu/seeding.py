@@ -20,6 +20,7 @@ run csrc/repack.cu's kernel, B8's int64 and B3's int32 instance.
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -174,6 +175,8 @@ def seed_packed(packed: torch.Tensor, lengths: torch.Tensor, *, c: int,
     _cuda.require(lengths, "lengths", torch.int32, 1, dev)
     if lengths.shape[0] != N:
         raise ValueError(f"lengths {tuple(lengths.shape)} for {N} rows")
+    if nw < 1:
+        raise ValueError(f"padded read length {L} < k {k}")
     hash_ = torch.empty((N, L), dtype=torch.int64, device=dev)
     keep = torch.empty((N, L), dtype=torch.bool, device=dev)
     lib = _cuda.library("seed")
@@ -181,10 +184,26 @@ def seed_packed(packed: torch.Tensor, lengths: torch.Tensor, *, c: int,
         rc = lib.seed_launch(
             _cuda.ptr(packed), _cuda.ptr(lengths), ctypes.c_int64(N),
             ctypes.c_int(L), ctypes.c_int(k), ctypes.c_uint64(threshold(c)),
-            _cuda.ptr(hash_), _cuda.ptr(keep), _cuda.stream_ptr(packed))
+            _cuda.ptr(hash_), _cuda.ptr(keep),
+            ctypes.c_int64(_seed_grid(dev)), _cuda.stream_ptr(packed))
     _cuda.check(lib, rc, "seed_launch")
     _cuda.count_launch("B7_seed")
     return hash_, keep
+
+
+def seed_occupancy() -> dict:
+    """What the card reports for a launch of csrc/seed.cu on the current
+    device (card only); see ``_cuda.occupancy``."""
+    return _cuda.occupancy(_cuda.library("seed"), "seed_occupancy")
+
+
+@functools.cache
+def _seed_grid(dev: torch.device) -> int:
+    """B7's grid on ``dev``: the blocks resident on the card at once, which
+    stride over the row pieces (worked out once per device)."""
+    with torch.cuda.device(dev):
+        per_sm = seed_occupancy()["ctas_per_sm"]
+    return per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 # ---- B11 and B12: row repacks -------------------------------------------

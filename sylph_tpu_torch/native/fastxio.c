@@ -32,19 +32,16 @@ typedef struct FxResult {
     char *error; /* NULL on success */
 } FxResult;
 
-static uint8_t BYTE_TO_SEQ[256];
-static int table_init_done = 0;
-
-static void init_table(void) {
-    if (table_init_done) return;
-    memset(BYTE_TO_SEQ, 0, sizeof(BYTE_TO_SEQ));
-    BYTE_TO_SEQ[1] = 1; BYTE_TO_SEQ[2] = 2; BYTE_TO_SEQ[3] = 3;
-    BYTE_TO_SEQ['C'] = 1; BYTE_TO_SEQ['c'] = 1;
-    BYTE_TO_SEQ['G'] = 2; BYTE_TO_SEQ['g'] = 2;
-    BYTE_TO_SEQ['T'] = 3; BYTE_TO_SEQ['t'] = 3;
-    BYTE_TO_SEQ['U'] = 3; BYTE_TO_SEQ['u'] = 3;
-    table_init_done = 1;
-}
+/* A constant table: parse workers run concurrently from their first call,
+ * and a table filled at first use (memset, then the entries) could be
+ * zeroed by one thread while another reads it. */
+static const uint8_t BYTE_TO_SEQ[256] = {
+    [1] = 1, [2] = 2, [3] = 3,
+    ['C'] = 1, ['c'] = 1,
+    ['G'] = 2, ['g'] = 2,
+    ['T'] = 3, ['t'] = 3,
+    ['U'] = 3, ['u'] = 3,
+};
 
 static FxResult *fail(FxResult *r, const char *msg, const char *path) {
     size_t n = strlen(msg) + strlen(path) + 4;
@@ -208,7 +205,6 @@ static FxResult *parse_data(FxResult *r, uint8_t *data, int64_t len,
  * at record boundaries, and parses each block while the next decodes. */
 FxResult *fx_parse_buffer(const uint8_t *data, int64_t len,
                           int skip_names) {
-    init_table();
     FxResult *r = (FxResult *)calloc(1, sizeof(FxResult));
     if (!r) return NULL;
     return parse_data(r, (uint8_t *)data, len, skip_names, "<buffer>", 0);

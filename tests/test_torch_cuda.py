@@ -750,3 +750,258 @@ def test_kbench_kernels_match_plain(cuda, kind, n):
                                       dtype=np.uint32).view(np.int32))
     got = kbench.launch(kind, x.to(cuda), n)
     _equal((got,), (kbench.PLAIN[kind](x, n),))
+
+
+# ---- the redesigned B7 and B1 ----------------------------------------------
+
+@pytest.mark.parametrize("L", [16, 48, 128, 256, 512, 4096])
+@pytest.mark.parametrize("k", [1, 15, 16, 21, 31])
+def test_seed_warp_pieces_match_plain(cuda, L, k):
+    """B7's warp-per-piece kernel at row lengths below one 256-base piece,
+    at one and at several pieces, k from 1 to 31, c = 1 and 200: rows of
+    length L, 0 and k - 1 among random ones, N = 37 (not a multiple of the
+    8 warps a block), every hash and keep bit for bit."""
+    N = 37
+    packed, lens = _packed_batch(L + k, N, L)
+    lens[2] = k - 1
+    for c in (1, 200):
+        got = sd.seed_packed(packed.to(cuda), lens.to(cuda), c=c, k=k)
+        want = sd.seed_packed_plain(packed, lens, c=c, k=k)
+        _equal(got, want)
+        assert int(want[1][1:3].sum()) == 0
+        assert c > 1 or int(want[1][0].sum()) == L - k + 1 > 0 or L < k
+
+
+@pytest.mark.parametrize("N,L,blocks", [
+    (8000, 1280, None),        # 40,000 pieces, 5 a row, the card's grid
+    (70_000, 48, None),        # 70,000 one-piece rows, the card's grid
+    (301, 1280, 3),            # 24 warps over 5 pieces a row: the warp's
+    (97, 1792, 5),             # piece steps past the row's end (40 over 7)
+    (53, 768, 1),              # 8 warps over 3 pieces a row
+    (41, 4096, 7)])            # 56 warps over 16 pieces a row
+def test_seed_grid_stride_matches_plain(cuda, monkeypatch, N, L, blocks):
+    """B7's grid-stride loop: more pieces than warps in the grid, with a
+    stride that the pieces a row do not divide, so a warp's next piece
+    lies in another row at another piece (the carry of ``p += stride_p``).
+    At the card's own grid (4,224 warps on a 132-SM H100) and at grids of
+    a few blocks; every hash and keep bit for bit."""
+    if blocks is not None:
+        monkeypatch.setattr(sd, "_seed_grid", lambda dev: blocks)
+    packed, lens = _packed_batch(L + 21, N, L)
+    got = sd.seed_packed(packed.to(cuda), lens.to(cuda), c=5, k=21)
+    _equal(got, sd.seed_packed_plain(packed, lens, c=5, k=21))
+
+
+def test_seed_empty_batch(cuda):
+    """N = 0 rows: empty outputs and no kernel work; a batch of no words a
+    row raises, as the plain version does."""
+    packed = torch.zeros((0, 16), dtype=torch.int32)
+    lens = torch.zeros(0, dtype=torch.int32)
+    got = sd.seed_packed(packed.to(cuda), lens.to(cuda), c=200, k=31)
+    _equal(got, sd.seed_packed_plain(packed, lens, c=200, k=31))
+    with pytest.raises(ValueError):
+        sd.seed_packed(torch.zeros((4, 0), dtype=torch.int32, device=cuda),
+                       torch.zeros(4, dtype=torch.int32, device=cuda),
+                       c=200, k=31)
+
+
+def _skewed_slice(seed, B, width, base, heavy, n_live=6000):
+    """A sorted slice like _slice's, plus ``heavy`` keys in one sub-range
+    of bucket B // 2 whose weights run in long zero stretches (folded
+    duplicates) between live ones; KEY_PAD tail."""
+    rng = np.random.default_rng(seed)
+    hi = rng.integers(base - 3 * width, base + (B + 2) * width, size=n_live)
+    hh = np.full(heavy, base + (B // 2) * width + width - 2)
+    hi = np.concatenate([hi, hh])
+    lo = rng.integers(0, 2**32, size=hi.size)
+    keys, idx = np.unique((hi.astype(np.int64) << 32) | lo,
+                          return_index=True)
+    w = rng.integers(0, 6, size=hi.size).astype(np.int32)[idx]
+    hv = (keys >> 32) == base + (B // 2) * width + width - 2
+    run = (np.cumsum(hv) // 700) % 2 == 0          # stretches of 700
+    w[hv & run] = 0
+    w[hv & ~run] = np.maximum(w[hv & ~run], 1)
+    P = keys.size + 777
+    k = np.full(P, -1, np.int64)
+    ww = np.zeros(P, np.int32)
+    k[:keys.size], ww[:keys.size] = keys, w
+    return torch.from_numpy(k), torch.from_numpy(ww)
+
+
+@pytest.mark.parametrize("CS", [1, 3, 16, 36, 256])
+@pytest.mark.parametrize("nt,subwidth", [(1, 0), (4, 15)])
+def test_fill_block_runs_match_plain(cuda, CS, nt, subwidth):
+    """B1's block-per-cell-run kernel under skew: a cell of 12,000 entries
+    in zero-weight stretches, B = 301 buckets (NC not a multiple of the
+    cells a block takes), nt = 4 with subwidth 15 of width 64 (the last
+    sub-range wider), CS from 1 (overflow everywhere) to 256."""
+    B, width, base = 301, 64, 1 << 20
+    k, w = _skewed_slice(CS + nt, B, width, base, 12_000)
+    kw = dict(width=width, B=B, CS=CS, nt=nt, subwidth=subwidth)
+    cpb = bf.fill_plan(k.shape[0], B * nt, CS)
+    assert (B * nt) % cpb or cpb == 1
+    got = bf.bucket_fill(k.to(cuda), w.to(cuda), base, **kw)
+    want = bj._sample_to_buckets(k, w, base=base, **kw)
+    _equal(got, want)
+    heavy = (B // 2) * nt + (nt - 1)
+    assert int((want[1][heavy] > 0).sum()) == CS
+
+
+@pytest.mark.parametrize("CS", [5000, 19_363])
+def test_fill_wide_cells_match_plain(cuda, CS):
+    """A block of one cell whose slots need more than the 48 KB of shared
+    memory a launch gets without opting in (60 KB at CS 5,000, 227 KB at
+    the widest CS the plan takes), with a 12,000-entry cell."""
+    B, width, base = 7, 64, 1 << 20
+    k, w = _skewed_slice(CS, B, width, base, 12_000, n_live=300)
+    kw = dict(width=width, B=B, CS=CS, nt=1, subwidth=0)
+    assert bf.fill_plan(k.shape[0], B, CS) == 1
+    got = bf.bucket_fill(k.to(cuda), w.to(cuda), base, **kw)
+    want = bj._sample_to_buckets(k, w, base=base, **kw)
+    _equal(got, want)
+    assert int((want[1][B // 2] > 0).sum()) >= 5000
+
+
+def test_fill_out_of_order_slice_stays_in_bounds(cuda):
+    """A slice out of the kernel's order (keys of 2^63 and up, which an
+    int64 sort puts ahead of the rest and no sketch at c >= 2 holds): the
+    blocks find wrong ranges but write only their own cells, so the launch
+    completes, and the next launch on an ordered slice is exact."""
+    rng = np.random.default_rng(5)
+    B, n = 512, 20_000
+    width = (1 << 32) // B
+    hi = rng.integers(0, B * width, size=n)
+    keys = np.sort(np.unique((hi.astype(np.int64) << 32)
+                             | rng.integers(0, 1 << 32, size=n)))
+    assert keys[0] < 0 < keys[-1]
+    w = torch.from_numpy(rng.integers(1, 6, size=keys.size).astype(np.int32))
+    kw = dict(width=width, B=B, CS=16, nt=4, subwidth=-(-width // 4))
+    got = bf.bucket_fill(torch.from_numpy(keys).to(cuda), w.to(cuda), 0,
+                         **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == (B * 4, 16)
+    k, w = _skewed_slice(9, 301, 64, 1 << 20, 3000)
+    kw = dict(width=64, B=301, CS=16, nt=4, subwidth=15)
+    _equal(bf.bucket_fill(k.to(cuda), w.to(cuda), 1 << 20, **kw),
+           bj._sample_to_buckets(k, w, base=1 << 20, **kw))
+
+
+@pytest.mark.parametrize("P", [0, 4096])
+def test_fill_empty_and_all_pad_slices(cuda, P):
+    """P = 0 and a slice of pads only: every cell all pads."""
+    k = torch.full((P,), -1, dtype=torch.int64)
+    w = torch.zeros(P, dtype=torch.int32)
+    for nt in (1, 4):
+        kw = dict(width=64, B=130, CS=3, nt=nt, subwidth=16 if nt > 1 else 0)
+        got = bf.bucket_fill(k.to(cuda), w.to(cuda), 1 << 20, **kw)
+        want = bj._sample_to_buckets(k, w, base=1 << 20, **kw)
+        _equal(got, want)
+        assert int((got[0] != -1).sum()) == 0
+
+
+def test_seed_and_fill_occupancy(cuda):
+    """The occupancy readouts: at least one resident block a SM for B7 (its
+    grid all of them) and for B1's plans at CS 16, 36 and 256, whose
+    blocks take the shared memory their staged slots need; a cell past 227
+    KB is refused."""
+    occ = sd.seed_occupancy()
+    assert occ["ctas_per_sm"] >= 1 and occ["threads"] == 256
+    assert sd._seed_grid(torch.device(cuda)) == occ["ctas_per_sm"] * \
+        torch.cuda.get_device_properties(cuda).multi_processor_count
+    for P, NC, CS in ((300_000, 131_072, 16), (1_500_000, 131_072, 36),
+                      (5_300_000, 65_536, 256), (10, 4, 19_363)):
+        cpb = bf.fill_plan(P, NC, CS)
+        occ = bf.fill_occupancy(cpb, CS)
+        assert occ["ctas_per_sm"] >= 1
+        assert cpb * CS * 12 <= occ["smem_bytes"] <= 232448
+    with pytest.raises(RuntimeError):
+        bf.fill_occupancy(1, 19_400)
+
+
+def _main_chunk(seed, B, CS, nt=4, tile=256, ov=128, G=9):
+    """_main_geometry at a whole chunk's B rows, built without a row loop,
+    with _adversarial_join's traps: pad slots holding gids below G, in a
+    fifth of the rows a lane of key -1 and weight > 0, zero weights
+    between live lanes, a lane group emptied in some rows."""
+    rng = np.random.default_rng(seed)
+    width, base = 1 << 15, 1 << 20        # high words below 2^31
+    subw = width // nt
+    CI = nt * tile + ov
+    rows = np.arange(B)
+    hi = (base + rows[:, None, None] * width
+          + np.arange(nt)[None, :, None] * subw
+          + rng.integers(0, subw, size=(B, nt, tile)))
+    kk = np.sort((hi << 32) | rng.integers(0, 2**32, size=(B, nt, tile)),
+                 axis=2)
+    n = rng.integers(tile * 9 // 10, tile + 1, size=(B, nt))
+    kk[np.arange(tile)[None, None, :] >= n[:, :, None]] = -1
+    keys = np.empty((B, CI), np.int64)
+    keys[:, :nt * tile] = kk.reshape(B, nt * tile)
+    del hi, kk
+    hio = base + rows[:, None] * width + rng.integers(0, width, size=(B, ov))
+    ko = (hio << 32) | rng.integers(0, 2**32, size=(B, ov))
+    ko[np.arange(ov)[None, :] >= rng.integers(0, 30, size=B)[:, None]] = -1
+    keys[:, nt * tile:] = ko
+    live = keys != -1
+    gid = rng.integers(0, G, size=(B, CI)).astype(np.int32)
+    gid[~live & (rng.random((B, CI)) < 0.9)] = G
+    pool = keys[live]
+    n_smp = B * nt * CS // 4
+    own = pool[rng.integers(0, pool.size, size=n_smp // 2)]
+    hs = base + rng.integers(0, B * width, size=n_smp - own.size)
+    sk = np.unique(np.concatenate([own, (hs << 32) | rng.integers(
+        0, 2**32, size=hs.size)]))
+    sw = rng.integers(1, 90, size=sk.size).astype(np.int32)
+    sw[rng.random(sk.size) < 0.3] = 0
+    dk, dw = bj._sample_to_buckets(torch.from_numpy(sk), torch.from_numpy(sw),
+                                   width=width, B=B, CS=CS, base=base, nt=nt,
+                                   subwidth=subw)
+    dk, dw = dk.view(B, nt * CS).numpy().copy(), dw.view(B, nt * CS).numpy()
+    dw = dw.copy()
+    neg = np.flatnonzero(rng.random(B) < 0.2)
+    lane = rng.integers(0, nt * CS, size=neg.size)
+    dk[neg, lane] = -1
+    dw[neg, lane] = rng.integers(1, 90, size=neg.size)
+    empty = np.flatnonzero(rng.random(B) < 0.15)
+    grp = rng.integers(0, nt, size=empty.size)
+    for g in range(nt):
+        dw[empty[grp == g], g * CS:(g + 1) * CS] = 0
+    return (torch.from_numpy(keys), torch.from_numpy(gid),
+            torch.from_numpy(dk), torch.from_numpy(dw))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("CS", [16, 40])
+def test_join_stress_two_streams_main_chunk(cuda, seed, CS):
+    """join.cu at the GTDB-scale chunk (B = 32,768, CI = 1,152, nt = 4,
+    tile 256), lane lists of the sample's (CS 16) and the deep sample's (CS
+    40) size, with pad-key traps: B5, B4 and B2 launched 4 times each from
+    two streams at once, interleaved, every launch equal to the plain
+    version (computed on the card). A race in the staging ring would show
+    as a launch that differs."""
+    B, nt, tile, G, capr = 32768, 4, 256, 9, 24
+    ikey, gid, dk, dw = (t.to(cuda) for t in _main_chunk(seed, B, CS))
+    assert ikey.shape == (B, 1152)
+    kw = dict(nt=nt, tile=tile)
+    want = ((bj.join_counts_plain(ikey, dk, dw, **kw),),
+            (bj.join_codes_plain(ikey, gid, dk, dw, G=G, **kw),),
+            bj.join_codes_compact_plain(ikey, gid, dk, dw, G=G, CAPR=capr,
+                                        **kw))
+    assert int((want[2][0] != -1).sum()) > 0
+    runs = (lambda: (bj.join_counts(ikey, dk, dw, **kw),),
+            lambda: (bj.join_codes(ikey, gid, dk, dw, G=G, **kw),),
+            lambda: bj.join_codes_compact(ikey, gid, dk, dw, G=G, CAPR=capr,
+                                          **kw))
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(4):
+        for m, run in enumerate(runs):
+            for st in streams:
+                with torch.cuda.stream(st):
+                    got.append((m, run()))
+    torch.cuda.synchronize()
+    bad = [i for i, (m, out) in enumerate(got)
+           if not all(torch.equal(a, b) for a, b in zip(out, want[m]))]
+    assert not bad, f"launches {bad} of {len(got)} differ from the plain"

@@ -119,3 +119,48 @@ def test_kbench_needs_the_card(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
     with pytest.raises(RuntimeError):
         kbench.table("cpu")
+
+
+def test_kernel_ab_needs_the_card(monkeypatch, capsys, tmp_path):
+    """The A/B of kernels against another tree's builds nothing and exits
+    2 without a card."""
+    from sylph_tpu_torch import kernel_ab
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kernel_ab.main([str(tmp_path)]) == 2
+    assert "needs an NVIDIA GPU" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("case", ["B7 reads", "B1 grange", "kbench identity"])
+def test_kernel_ab_loads_a_tree_apart(case):
+    """kernel_ab imports another tree (here this one) as a package of its
+    own, with its own kernel build and launch counts, and that tree's
+    wrapper of each kind of case, given the case's inputs at a small size,
+    gives what this tree's gives (both run the plain version on the
+    CPU)."""
+    import importlib
+    import os
+    import sys
+
+    from sylph_tpu_torch import kernel_ab
+    from sylph_tpu_torch.gpu import _cuda
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    kernel_ab._load_tree(root)
+    try:
+        module, wrapper, _, _, _ = kernel_ab.CASES[case]
+        old = importlib.import_module(f"{kernel_ab._OLD}.{module}")
+        new = importlib.import_module(f"sylph_tpu_torch.{module}")
+        assert old is not new
+        old_cuda = importlib.import_module(f"{kernel_ab._OLD}.gpu._cuda")
+        assert old_cuda.LAUNCHES is not _cuda.LAUNCHES
+        rng = np.random.default_rng(3)
+        args = {"B7 reads": lambda: kernel_ab._reads(rng, 8, 256, 150),
+                "B1 grange": lambda: kernel_ab._slice(rng, 64, 4, 3, 500,
+                                                      600),
+                "kbench identity": lambda: kernel_ab._words(rng, 256),
+                }[case]()
+        assert kernel_ab._equal(getattr(old, wrapper)(**args),
+                                getattr(new, wrapper)(**args))
+    finally:
+        for name in [m for m in sys.modules if m == kernel_ab._OLD
+                     or m.startswith(kernel_ab._OLD + ".")]:
+            del sys.modules[name]

@@ -21,6 +21,7 @@ from sylph_tpu.tpu.bucket_join import (_join_xla_tiled, _sample_to_buckets,
                                        bucket_join_counts, bucket_join_device,
                                        build_bucketed_index)
 from sylph_tpu.tpu.u64 import from_u64_np
+from sylph_tpu_torch.gpu import bucket_fill as bf
 from sylph_tpu_torch.gpu.bucket_fill import bucket_fill, repack1_flat
 from sylph_tpu_torch.gpu import bucket_join as bj
 from sylph_tpu_torch.gpu.bucket_join import (join_codes, join_codes_compact,
@@ -325,6 +326,54 @@ def test_join_plan_main_paths_keep_32_warps(S, CI, LW, nt, tile, mode):
 def test_join_plan_rejects_what_the_kernel_cannot_take(S, CI, LW, nt, tile):
     with pytest.raises(ValueError):
         bj.join_plan(S, CI, LW, nt, tile, bj._MODE_COMPACT)
+
+
+# ---- B1's launch plan ------------------------------------------------------
+
+_FILL_SHAPES = [                # (P, NC, CS) -> cells a block
+    (253_952, 131_072, 16, 128),          # grange chunk, sample.sylsp
+    (1_523_712, 131_072, 36, 56),         # grange chunk, deep.sylsp
+    (8_388_608, 65_536, 256, 8),          # whole range (B5''s fill)
+    (253_952, 131_072, 64, 32),           # the lossless redo at 4x CS
+]
+
+
+@pytest.mark.parametrize("P,NC,CS,cpb", _FILL_SHAPES)
+def test_fill_plan_main_paths(P, NC, CS, cpb):
+    """At the main paths' shapes a block stages about 2,048 slots (24 KB),
+    so 8 blocks fit the H100 SM's 228 KB; cells a block are a multiple of
+    4, so every region starts on 16 bytes."""
+    assert bf.fill_plan(P, NC, CS) == cpb
+    assert 8 * (cpb * CS * 12 + cpb * 8 + 1024 + 128) <= 228 * 1024
+
+
+@pytest.mark.parametrize("P,NC,CS", [
+    (0, 0, 1), (0, 5, 3), (10, 1, 1), (100_000, 7, 5), (10**7, 301, 16),
+    (18_777, 1204, 3), (5, 10**6, 1), (1000, 12, 19_000),
+    (1000, 12, 19_363)])
+def test_fill_plan_covers_the_cells(P, NC, CS):
+    """Any geometry: at least one cell a block, at most NC (where NC > 0),
+    a multiple of 4 from 4 up, at most about 1,024 entries a block where
+    cells are dense, and the shared memory the kernel lays out for them
+    (csrc/fill.cu's smem_need) within 227 KB."""
+    cpb = bf.fill_plan(P, NC, CS)
+    assert cpb >= 1
+    assert NC == 0 or cpb <= NC
+    assert cpb < 4 or cpb % 4 == 0
+    assert cpb == 1 or P <= NC or cpb * P / NC <= 1024
+    slots = cpb * CS
+    assert (slots + slots % 2) * 8 + -(-slots // 4) * 16 + cpb * 8 \
+        <= 232448 - 64
+
+
+@pytest.mark.parametrize("P,NC,CS", [(10, 4, 0), (10, -1, 4),
+                                     (-1, 4, 4), (10, 4, 19_364),
+                                     (10, 4, 19_400)])
+def test_fill_plan_rejects_what_the_kernel_cannot_take(P, NC, CS):
+    """No cell capacity, negative sizes, or one cell's CS slots past 227 KB
+    of shared memory (less the kernel's 64 B of static arrays)."""
+    with pytest.raises(ValueError):
+        bf.fill_plan(P, NC, CS)
 
 
 # ---- B3: code-stream repack ------------------------------------------------
