@@ -74,14 +74,19 @@ and drives the port's main path once, at database scale:
      genome rows; (p) chunk 0 against the three cohort samples' slices, S =
      3, for B2b, B4b and B5b, and each at S = 1 against B2, B4 and B5),
      bit for bit, plus overflow cases that must be detected; each kernel's
-     time, its plain version's, its bound and, for B3 and B8, one library
-     call's. The rows of csrc/join.cu (B2, B4, B5, B5', B2b, B4b, B5b),
-     csrc/seed.cu (B7 on reads and on genome rows) and csrc/fill.cu (B1 on
-     the grange slices of sample.sylsp and deep.sylsp and on the whole
-     range) also carry torch.profiler's device time a launch (a time
+     time, its plain version's, its bound and, for B3, B8, B11 and B12,
+     one library call's (torch.masked_select). The rows of csrc/join.cu
+     (B2, B4, B5, B5', B2b, B4b, B5b), csrc/seed.cu (B7 on reads and on
+     genome rows), csrc/fill.cu (B1 on the grange slices of sample.sylsp
+     and deep.sylsp and on the whole range) and csrc/repack.cu (B3, B8,
+     B11, B12) also carry torch.profiler's device time a launch (a time
      under about 0.05 ms by CUDA events is mostly the host's) and the
      launch's occupancy as the card reports it (registers, shared memory,
-     resident CTAs a SM; B1 also its cells a block); a line of its own
+     resident CTAs a SM; B1 also its cells a block, the repacks their
+     cluster, piece and resident clusters); the repack rows also carry
+     the profiler's time of all the library call's device work
+     (``library_profiler_ms``); B3's and B8's (row, cap, nwin) are
+     printed; a line of its own
      beside each join row gives the compares the kernel issues (per warp,
      from its loop bounds) and those the data needs, both computed from
      the inputs, not measured.
@@ -1620,6 +1625,22 @@ def _fill_extras(fn, P: int, NC: int, CS: int) -> dict:
                                cells_per_block=cpb))
 
 
+def _repack_extras(fn, x, live, row: int, cap: int) -> dict:
+    """A csrc/repack.cu row's (B3, B8, B11, B12) torch.profiler device
+    time a launch, the profiler's time of all the device work of its
+    library yardstick (torch.masked_select on the same stream, several
+    kernels and a copy), and the card's occupancy readout of its launch
+    plan."""
+    import torch
+
+    from sylph_tpu_torch.gpu import _cuda
+    from sylph_tpu_torch.gpu import bucket_fill as bf
+    lib = _cuda.device_ms_all(lambda: torch.masked_select(x, live))
+    return dict(profiler_ms=_profiler_ms(fn, "repack_kernel"),
+                library_profiler_ms="not measured" if lib is None else lib,
+                occupancy=bf.repack_occupancy(row, cap, x.dtype))
+
+
 def _live_windows(lens, k: int) -> int:
     """k-mer windows in rows of these lengths."""
     import torch
@@ -1749,6 +1770,9 @@ def _kernels(dc, loaded, launches, reads):
     err = _same("B3_repack", (got,), (want,))
     shared = {"codes": (stream, row, cap)}
     live = stream != SENT
+    print(f"B3 plan for chunk 0's code stream: {stream.numel()} slots, "
+          f"{int(live.sum())} live, (row, cap, nwin) = ({row}, {cap}, "
+          f"{bf._n_windows(stream.numel(), row)})")
     record("B3_repack", "repack.cu", "sylph_tpu/tpu/bucket_fill.py:166",
            err, _cuda_ms(lambda: bf.repack1_flat(stream, row=row, cap=cap),
                          50),
@@ -1756,7 +1780,10 @@ def _kernels(dc, loaded, launches, reads):
                     5),
            stream.numel() * 4 + got.numel() * 4, 0,
            library_ms=_cuda_ms(lambda: torch.masked_select(stream, live),
-                               50))
+                               50),
+           **_repack_extras(lambda: bf.repack1_flat(stream, row=row,
+                                                     cap=cap),
+                            stream, live, row, cap))
 
     # B4 full code grid, on chunk 0's slice of the dense deep.sylsp
     dpk, dpw, _dP, dCS, _dd = slice0("deep")
@@ -1979,8 +2006,13 @@ def _seed_kernels(device, reads, record):
                     5),
            stream.numel() * 8 + got.numel() * 8, 0,
            library_ms=_cuda_ms(lambda: torch.masked_select(stream, live),
-                               50))
-    print(f"B8 plan for this batch: {plan} (row, cap) passes")
+                               50),
+           **_repack_extras(lambda: bf.repack2_flat(stream, row=row,
+                                                     cap=cap),
+                            stream, live, row, cap))
+    print(f"B8 plan for this batch: {plan} (row, cap) passes over "
+          f"{stream.numel()} slots, {int(live.sum())} live; the first "
+          f"pass's nwin {bf._n_windows(stream.numel(), row)}")
     # overflow: a window capacity below its live count drops survivors;
     # the caller's count check (live out vs per-read counts) must see it
     n_live = int(live.sum())
@@ -2044,7 +2076,9 @@ def _row_repack_phase(shared, record):
             _cuda_ms(lambda: plain(x, row=row, cap=cap), 5),
             x.numel() * width + out.numel() * width, 0,
             library_ms=_cuda_ms(lambda: torch.masked_select(x, live), 50),
-            n_launches=launches[name])
+            n_launches=launches[name],
+            **_repack_extras(lambda: fn(x, row=row, cap=cap), x, live, row,
+                             cap))
         print(f"{name}: ({row}, {cap}) -> {tuple(out.shape)}, kept {kept} "
               f"of {n_live} live; {wide} bit-identical too")
     _dispatch_split(keys, krow, kcap)
@@ -2059,9 +2093,10 @@ def _row_repack_phase(shared, record):
 
 
 def _dispatch_split(keys, row, cap):
-    """B8 and B11 are one kernel on one stream at one (row, cap) (72 and 66
-    blocks): their CUDA-event times in turns (B8, B11, B11, B8), beside the
-    host's enqueue time a call and the device time a launch from
+    """B8 and B11 are one kernel on one stream at one (row, cap), over B8's
+    windows (padded to a multiple of 8) and B11's rows (padded to its
+    Pallas row block): their CUDA-event times in turns (B8, B11, B11, B8),
+    beside the host's enqueue time a call and the device time a launch from
     torch.profiler ("not measured" where it shows none). Where the enqueue
     time reaches the event time, the event time of back-to-back calls is
     the host's, not the kernel's."""

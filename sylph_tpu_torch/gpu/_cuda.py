@@ -137,8 +137,9 @@ _SIGNATURES = {                 # C entry point -> argument types
     "fill_occupancy": [_I64, _I64, _P],
     "join_launch": [_I32, _P, _P, _P, _P] + [_I64] * 13 + [_P, _P, _P],
     "join_occupancy": [_I32, _I64, _I64, _P],
-    "repack_launch": [_P] + [_I64] * 4 + [_P, _P],
-    "repack64_launch": [_P] + [_I64] * 4 + [_P, _P],
+    "repack_launch": [_P] + [_I64] * 6 + [_P, _P],
+    "repack64_launch": [_P] + [_I64] * 6 + [_P, _P],
+    "repack_occupancy": [_I32] + [_I64] * 4 + [_P],
     "seed_launch": [_P, _P, _I64, _I32, _I32, ctypes.c_uint64, _P, _P,
                     _I64, _P],
     "seed_occupancy": [_P],
@@ -178,12 +179,9 @@ def occupancy(lib: ctypes.CDLL, entry: str, *args, smem: int = 0) -> dict:
                 ctas_per_sm=info[2], warps_per_sm=info[2] * info[3] // 32)
 
 
-def device_ms(fn, kernel: str, reps: int = 20):
-    """Device ms a launch of the kernel whose name holds ``kernel``, by
-    torch.profiler over ``reps`` calls of ``fn`` that launch it once each
-    (card only; None where the profiler shows no device time or caught
-    another number of launches). A kernel under about 0.05 ms is timed
-    this way: CUDA events around its calls then mostly time the host."""
+def _profile(fn, reps: int):
+    """torch.profiler's averages by name over ``reps`` calls of ``fn``,
+    after one call outside the window."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -192,11 +190,34 @@ def device_ms(fn, kernel: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if kernel in e.key]
-    total = sum(getattr(e, "device_time_total",
-                        getattr(e, "cuda_time_total", 0)) for e in ev)
+    return prof.key_averages()
+
+
+def _device_us(e) -> float:
+    return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+
+
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Device ms a launch of the kernel whose name holds ``kernel``, by
+    torch.profiler over ``reps`` calls of ``fn`` that launch it once each
+    (card only; None where the profiler shows no device time or caught
+    another number of launches). A kernel under about 0.05 ms is timed
+    this way: CUDA events around its calls then mostly time the host."""
+    ev = [e for e in _profile(fn, reps) if kernel in e.key]
+    total = sum(_device_us(e) for e in ev)
     n = sum(e.count for e in ev)
     return total / n / 1e3 if total and n == reps else None
+
+
+def device_ms_all(fn, reps: int = 20):
+    """Device ms a call of ``fn``: all the device activity torch.profiler
+    records over ``reps`` calls (kernels and copies, whatever their
+    names), a call's share (card only; None where it records none). The
+    yardstick for a library call that launches several kernels."""
+    from torch.autograd import DeviceType
+    total = sum(_device_us(e) for e in _profile(fn, reps)
+                if e.device_type == DeviceType.CUDA)
+    return total / reps / 1e3 if total else None
 
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -24,6 +24,9 @@ _WPB = 8          # windows per block of the JAX kernel: output length unit
 _FILL_SLOTS = 2048            # output slots a block stages, aimed at
 _FILL_ENTRIES = 1024          # slice entries a block takes, aimed at
 _FILL_SMEM_MAX = 232384       # SMEM_MAX: 227 KB a block less 64 B static
+# csrc/repack.cu's geometry
+_REPACK_PIECE_BYTES = 32768   # bytes a CTA stages, at most (RP_PIECE_BYTES)
+_REPACK_CLUSTER_MAX = 8       # CTAs a window, at most (a portable cluster)
 
 
 def fill_plan(P: int, NC: int, CS: int) -> int:
@@ -141,19 +144,52 @@ def _repack(v: torch.Tensor, row: int, cap: int, dtype: torch.dtype,
                          entry, kname)
 
 
+def repack_plan(row: int, itemsize: int) -> tuple:
+    """(C, L) of csrc/repack.cu for ``row``-slot windows of ``itemsize``-
+    byte slots: a window is split over a cluster of C CTAs (a power of two
+    up to 8), each staging a piece of L slots a round (a multiple of 128,
+    at most 32 KB); a window wider than 8 such pieces takes rounds of 8."""
+    if row < 128 or row % 128:
+        raise ValueError(f"repack windows must be a positive multiple of "
+                         f"128 slots (got row={row})")
+    lmax = _REPACK_PIECE_BYTES // itemsize
+    pieces = -(-row // lmax)
+    c = 1
+    while c < min(pieces, _REPACK_CLUSTER_MAX):
+        c *= 2
+    return c, min(lmax, 128 * -(-row // (128 * c)))
+
+
+def repack_occupancy(row: int, cap: int, dtype: torch.dtype) -> dict:
+    """What the card reports for a launch of csrc/repack.cu at this window
+    geometry (card only): ``_cuda.occupancy``'s keys, the plan's cluster
+    and piece, and the clusters resident on the card at once."""
+    width = torch.empty((), dtype=dtype).element_size()
+    c, piece = repack_plan(row, width)
+    lib = _cuda.library("repack")
+    info = (ctypes.c_int * 5)()
+    _cuda.check(lib, lib.repack_occupancy(
+        width, ctypes.c_int64(row), ctypes.c_int64(cap), ctypes.c_int64(c),
+        ctypes.c_int64(piece), info), "repack_occupancy")
+    return dict(regs=info[0], smem_bytes=info[1], threads=info[3],
+                ctas_per_sm=info[2], warps_per_sm=info[2] * info[3] // 32,
+                cluster=c, piece=piece, clusters_resident=info[4])
+
+
 def launch_repack(v: torch.Tensor, nwin: int, row: int, cap: int,
                   dtype: torch.dtype, entry: str, kname: str) -> torch.Tensor:
     """Launch csrc/repack.cu's kernel (C entry ``entry``, int32 or int64
     instance) over ``nwin`` windows of the CUDA stream ``v`` -> [nwin * cap],
     counted under ``kname``: B3, B8, B11 and B12."""
     _cuda.require(v, "v", dtype, 1, v.device)
+    c, piece = repack_plan(row, v.element_size())
     out = torch.empty(nwin * cap, dtype=dtype, device=v.device)
     lib = _cuda.library("repack")
     with torch.cuda.device(v.device):
         rc = getattr(lib, entry)(
             _cuda.ptr(v), ctypes.c_int64(v.shape[0]), ctypes.c_int64(row),
-            ctypes.c_int64(cap), ctypes.c_int64(nwin), _cuda.ptr(out),
-            _cuda.stream_ptr(v))
+            ctypes.c_int64(cap), ctypes.c_int64(nwin), ctypes.c_int64(c),
+            ctypes.c_int64(piece), _cuda.ptr(out), _cuda.stream_ptr(v))
     _cuda.check(lib, rc, entry)
     _cuda.count_launch(kname)
     return out

@@ -60,6 +60,15 @@ def _slice(rng, B, nt, CS, n_entries, n_slots):
                 subwidth=-(-width // nt) if nt > 1 else 0)
 
 
+def _pad_stream(rng, n, dtype, dens, row, cap):
+    """A repack input: n slots live at density ``dens`` (int32 codes below
+    2^31, int64 keys below 2^62), pad -1 else, with its window geometry."""
+    hi = 1 << (31 if dtype == np.int32 else 62)
+    v = rng.integers(0, hi, size=n, dtype=np.int64).astype(dtype)
+    v[rng.random(n) > dens] = -1
+    return dict(v=torch.from_numpy(v), row=row, cap=cap)
+
+
 def _words(rng, R):
     return dict(kind="identity", x=torch.from_numpy(
         rng.integers(0, 1 << 32, size=(R, 256), dtype=np.uint32)
@@ -81,6 +90,12 @@ CASES = {
     "B1 whole": ("gpu.bucket_fill", "bucket_fill", "fill_cells_kernel",
                  "fill", lambda rng: _slice(rng, 65536, 1, 256, 5_300_000,
                                             8_388_608)),
+    "B3 grange": ("gpu.bucket_fill", "repack1_flat", "repack_kernel",
+                  "repack", lambda rng: _pad_stream(rng, 14_155_776, np.int32,
+                                                    0.0122, 8192, 2816)),
+    "B8 reads": ("gpu.bucket_fill", "repack2_flat", "repack_kernel",
+                 "repack", lambda rng: _pad_stream(rng, 2_162_688, np.int64,
+                                                   0.0483, 32768, 1536)),
     "kbench identity": ("kbench", "launch", "kb_identity", "kbench",
                         lambda rng: _words(rng, 65536)),
 }

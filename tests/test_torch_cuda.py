@@ -1005,3 +1005,137 @@ def test_join_stress_two_streams_main_chunk(cuda, seed, CS):
     bad = [i for i, (m, out) in enumerate(got)
            if not all(torch.equal(a, b) for a, b in zip(out, want[m]))]
     assert not bad, f"launches {bad} of {len(got)} differ from the plain"
+
+
+# ---- csrc/repack.cu (B3, B8, B11, B12) at its launch geometries -----------
+
+_REPACK = {4: ("repack_launch", torch.int32, "B3_repack"),
+           8: ("repack64_launch", torch.int64, "B8_repack2")}
+# B3's first pass over a GTDB-scale chunk's code stream and B8's over a
+# [65,536, 256] batch of reads, as chip_smoke.py prints them: (n, row, cap,
+# live share)
+_B3_MAIN = (14_155_776, 8192, 2816, 0.0122)
+_B8_MAIN = (2_162_688, 32768, 1536, 0.0483)
+
+
+def _pad_stream(seed, n, width, dens, odd=0):
+    """n slots, live at density ``dens`` (int32 codes below 2^31, int64
+    keys below 2^62), pad -1 else; ``odd`` int64 keys whose high word is
+    0xFFFFFFFF and whose low word is not (live in the port, ROADMAP C)."""
+    rng = np.random.default_rng(seed)
+    if width == 4:
+        v = rng.integers(0, 2**31, size=n).astype(np.int32)
+    else:
+        v = rng.integers(0, 2**62, size=n, dtype=np.int64)
+    v[rng.random(n) > dens] = -1
+    if odd and n:
+        v[rng.integers(0, n, size=odd)] = -(1 << 32) + 5
+    return torch.from_numpy(v)
+
+
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("n,nwin,row,cap,dens", [
+    (16384, 1, 16384, 768, 0.034),            # one window
+    (7 * 16384 - 300, 7, 16384, 768, 0.034),  # the stream ends mid-piece
+    (2_200_000, 136, 16384, 768, 0.034),      # 136 windows on 132 SMs
+    (9 * 32768 - 5, 9, 32768, 256, 0.001),    # one past a multiple of 8
+    (33 * 4096, 33, 4096, 256, 0.4),          # every window overflows cap
+    (8 * 32768, 8, 32768, 256, 0.0),          # all pad
+    (0, 8, 16384, 768, 0.5),                  # n = 0
+    (100, 8, 1024, 256, 0.5),                 # n < row
+    (3 * 32768, 3, 32768, 32768, 0.5),        # cap == row
+    (5 * 2048 + 17, 6, 2048, 2048, 0.7),
+    (5 * 24576, 5, 24576, 512, 0.01),         # pieces of 6,144 / 3,072
+    (5 * 24704 + 7, 6, 24704, 512, 0.02),     # a window's last piece short
+    (2 * 65664, 2, 65664, 512, 0.01),         # a round of empty pieces
+    (3 * 131072 + 999, 4, 131072, 1024, 0.004),   # rounds of 8 pieces
+    (2 * 131072, 2, 131072, 256, 0.3),        # a full window stops early
+    (50_000, 79, 640, 256, 0.2),              # B11/B12's 128-lane rows
+    (300 * 128 - 50, 512, 128, 128, 0.3),
+    (30_000, 79, 384, 128, 0.2)])
+def test_repack_windows_match_plain(cuda, width, n, nwin, row, cap, dens):
+    """csrc/repack.cu through launch_repack, at any window count, against
+    repack_windows_plain bit for bit: window counts of 1, 7, 9 and 136,
+    overflowing windows, all-pad and empty streams, cap == row, pieces
+    that do not divide 32 KB, a window whose last piece is short (pieces
+    tile a window, so no window boundary falls inside one), windows taken
+    in rounds (the early stop, a round with empty pieces), the row
+    repacks' 128-lane geometries; int64 with the pad-rule keys."""
+    entry, dtype, kname = _REPACK[width]
+    v = _pad_stream(n + row, n, width, dens, odd=8 if width == 8 else 0)
+    got = bf.launch_repack(v.to(cuda), nwin, row, cap, dtype, entry, kname)
+    _equal((got,), (bf.repack_windows_plain(v, nwin, row, cap),))
+
+
+@pytest.mark.parametrize("width", [4, 8])
+def test_repack_unaligned_stream_matches_plain(cuda, width):
+    """A stream that starts off 16 bytes (a view at slot 1) is read slot by
+    slot instead of by bulk copy, with the same output."""
+    entry, dtype, kname = _REPACK[width]
+    v = _pad_stream(5, 4 * 16384 + 1, width, 0.05)
+    got = bf.launch_repack(v.to(cuda)[1:], 4, 16384, 768, dtype, entry,
+                           kname)
+    _equal((got,), (bf.repack_windows_plain(v[1:], 4, 16384, 768),))
+
+
+@pytest.mark.parametrize("width,shape", [(4, _B3_MAIN), (8, _B8_MAIN)])
+def test_repack_main_shapes_match_plain(cuda, width, shape):
+    """B3 and B8 through their wrappers at the main path's first passes,
+    against the plain version computed on the card, with the launch
+    counted. At B8's live share, as on the main path's reads, some windows
+    overflow cap."""
+    from sylph_tpu_torch.gpu import _cuda
+    n, row, cap, dens = shape
+    v = _pad_stream(n, n, width, dens).to(cuda)
+    fn = bf.repack1_flat if width == 4 else bf.repack2_flat
+    kname = _REPACK[width][2]
+    n0 = _cuda.LAUNCHES[kname]
+    got = fn(v, row=row, cap=cap)
+    assert _cuda.LAUNCHES[kname] == n0 + 1
+    want = bf.repack1_flat_plain(v, row=row, cap=cap)
+    assert int((want != -1).sum()) > 0
+    _equal((got,), (want,))
+
+
+def test_repack_stress_two_streams_main_shapes(cuda):
+    """B3 and B8 at the main shapes launched 4 times each from two streams
+    at once, interleaved, every launch equal to the plain version (on the
+    card): a cluster barrier or a staging ring that let one launch see
+    another's counts or slots would show as a launch that differs."""
+    runs = []
+    for width, (n, row, cap, dens) in ((4, _B3_MAIN), (8, _B8_MAIN)):
+        v = _pad_stream(n + 1, n, width, dens).to(cuda)
+        fn = bf.repack1_flat if width == 4 else bf.repack2_flat
+        runs.append((lambda f=fn, v=v, row=row, cap=cap:
+                     f(v, row=row, cap=cap),
+                     bf.repack1_flat_plain(v, row=row, cap=cap)))
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(4):
+        for m, (run, _want) in enumerate(runs):
+            for st in streams:
+                with torch.cuda.stream(st):
+                    got.append((m, run()))
+    torch.cuda.synchronize()
+    bad = [i for i, (m, out) in enumerate(got)
+           if not torch.equal(out, runs[m][1])]
+    assert not bad, f"launches {bad} of {len(got)} differ from the plain"
+
+
+def test_repack_occupancy(cuda):
+    """The occupancy readout at the main plans (B3: one CTA a window; B8: a
+    cluster of 8 CTAs; 32 KB pieces), at cap == row and at a 128-lane row;
+    every plan leaves 5 CTAs a SM resident (the kernel's launch bound),
+    and clusters."""
+    for row, cap, dtype, plan in ((8192, 2816, torch.int32, (1, 8192)),
+                                  (32768, 1536, torch.int64, (8, 4096)),
+                                  (32768, 32768, torch.int32, (4, 8192)),
+                                  (384, 128, torch.int64, (1, 384))):
+        occ = bf.repack_occupancy(row, cap, dtype)
+        assert (occ["cluster"], occ["piece"]) == plan
+        width = 4 if dtype == torch.int32 else 8
+        assert occ["smem_bytes"] >= plan[1] * width
+        assert occ["ctas_per_sm"] >= 5 and occ["clusters_resident"] >= 1
+        assert occ["threads"] == 256

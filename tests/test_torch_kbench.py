@@ -130,7 +130,8 @@ def test_kernel_ab_needs_the_card(monkeypatch, capsys, tmp_path):
     assert "needs an NVIDIA GPU" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("case", ["B7 reads", "B1 grange", "kbench identity"])
+@pytest.mark.parametrize("case", ["B7 reads", "B1 grange", "B3 grange",
+                                  "B8 reads", "kbench identity"])
 def test_kernel_ab_loads_a_tree_apart(case):
     """kernel_ab imports another tree (here this one) as a package of its
     own, with its own kernel build and launch counts, and that tree's
@@ -156,6 +157,10 @@ def test_kernel_ab_loads_a_tree_apart(case):
         args = {"B7 reads": lambda: kernel_ab._reads(rng, 8, 256, 150),
                 "B1 grange": lambda: kernel_ab._slice(rng, 64, 4, 3, 500,
                                                       600),
+                "B3 grange": lambda: kernel_ab._pad_stream(
+                    rng, 70_000, np.int32, 0.01, 4096, 256),
+                "B8 reads": lambda: kernel_ab._pad_stream(
+                    rng, 70_000, np.int64, 0.1, 16384, 2048),
                 "kbench identity": lambda: kernel_ab._words(rng, 256),
                 }[case]()
         assert kernel_ab._equal(getattr(old, wrapper)(**args),

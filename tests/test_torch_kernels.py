@@ -16,7 +16,8 @@ import jax.numpy as jnp
 
 from sylph_tpu.tpu import grange as jgr
 from sylph_tpu.tpu.bucket_fill import (bucket_fill_pallas, fill_geometry,
-                                       repack1_flat as j_repack1_flat)
+                                       repack1_flat as j_repack1_flat,
+                                       repack2_flat as j_repack2_flat)
 from sylph_tpu.tpu.bucket_join import (_join_xla_tiled, _sample_to_buckets,
                                        bucket_join_counts, bucket_join_device,
                                        build_bucketed_index)
@@ -378,16 +379,78 @@ def test_fill_plan_rejects_what_the_kernel_cannot_take(P, NC, CS):
 
 # ---- B3: code-stream repack ------------------------------------------------
 
+@pytest.mark.parametrize("row,width,plan", [
+    (8192, 4, (1, 8192)),        # B3's first pass at the grange chunk
+    (32768, 8, (8, 4096)),       # B8's at a [65,536, 256] read batch
+    (24576, 4, (4, 6144)),       # three pieces' worth: a cluster of 4
+    (131072, 4, (8, 8192)),      # past 8 pieces: rounds of 8
+    (640, 8, (1, 640)), (128, 4, (1, 128))])   # B11/B12's 128-lane rows
+def test_repack_plan(row, width, plan):
+    """csrc/repack.cu's launch plan: a power-of-two cluster of at most 8
+    CTAs a window, pieces of at most 32 KB in 128-slot multiples that
+    cover the window, in rounds where 8 pieces do not."""
+    c, piece = bf.repack_plan(row, width)
+    assert (c, piece) == plan
+    assert piece % 128 == 0 and piece * width <= 32768
+    rounds = -(-row // (c * piece))
+    assert (rounds - 1) * c * piece < row <= rounds * c * piece
+    for bad in (0, 100, 200):
+        with pytest.raises(ValueError):
+            bf.repack_plan(bad, width)
+
+
 @pytest.mark.parametrize("seed,n,row,cap,dens", [
     (0, 40_000, 4096, 512, 0.02), (1, 9_000, 1024, 256, 0.1),
     (3, 9_000, 1024, 256, 0.4),             # windows overflow cap
+    (4, 70_000, 16384, 512, 0.01),          # a wide window, as the chain's
+    (5, 300, 1024, 256, 0.3),               # n < row
+    (6, 0, 1024, 256, 0.1),                 # n = 0
 ])
 def test_repack_matches_pallas(seed, n, row, cap, dens):
+    """B3's plain version against repack1_flat in interpret mode. An empty
+    stream has no window: the port returns no slot, and the Pallas call,
+    whose grid would have no step, refuses it."""
     rng = np.random.default_rng(seed)
     v = rng.integers(0, 2**31, size=n, dtype=np.uint32)
     v[rng.random(n) > dens] = SENT
-    want = j_repack1_flat(jnp.asarray(v), row=row, cap=cap, interpret=True)
     got = repack1_flat(torch.from_numpy(v.view(np.int32)), row=row, cap=cap)
+    if n == 0:
+        assert got.shape == (0,)
+        with pytest.raises(TypeError):
+            j_repack1_flat(jnp.asarray(v), row=row, cap=cap, interpret=True)
+        return
+    want = j_repack1_flat(jnp.asarray(v), row=row, cap=cap, interpret=True)
     np.testing.assert_array_equal(got.numpy(), _codes_i32(want))
     if dens > 0.3:                          # overflow is a visible drop
         assert int((got != -1).sum()) < int((v != SENT).sum())
+
+
+@pytest.mark.parametrize("seed,n,row,cap,dens", [
+    (0, 70_000, 16384, 512, 0.01),          # a wide window
+    (1, 9_000, 1024, 256, 0.1),
+    (2, 9_000, 1024, 256, 0.4),             # windows overflow cap
+    (3, 300, 1024, 256, 0.3),               # n < row
+    (4, 0, 1024, 256, 0.1),                 # n = 0
+])
+def test_repack2_matches_pallas(seed, n, row, cap, dens):
+    """B8's plain version (int64 keys, pad -1) against repack2_flat's (hi,
+    lo) pair streams in interpret mode, dead slots (SENT, SENT) as on every
+    stream at c >= 2; an empty stream as in test_repack_matches_pallas."""
+    rng = np.random.default_rng(seed)
+    hi = rng.integers(0, 2**31, size=n, dtype=np.uint32)
+    lo = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+    dead = rng.random(n) > dens
+    hi[dead] = SENT
+    lo[dead] = SENT
+    got = bf.repack2_flat(_keys(hi, lo), row=row, cap=cap)
+    if n == 0:
+        assert got.shape == (0,)
+        with pytest.raises(TypeError):
+            j_repack2_flat(jnp.asarray(hi), jnp.asarray(lo), row=row,
+                           cap=cap, interpret=True)
+        return
+    wh, wl = j_repack2_flat(jnp.asarray(hi), jnp.asarray(lo), row=row,
+                            cap=cap, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), _keys(wh, wl).numpy())
+    kept = int((got != -1).sum())
+    assert (kept < int((~dead).sum())) == (dens > 0.3)
