@@ -157,18 +157,47 @@ READ_BASES = 1 << 30           # a typical Illumina metagenome, 1.07 Gbp
 ABUNDANT = 64                  # genomes planted in the read set
 SEED_BATCH = 1 << 16           # reads per seeding batch (device_sketch.py)
 H100_BYTES_PER_S = 3.35e12     # HBM3, SXM data sheet
-# INT32 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper
-# whitepaper); the data sheet has no integer rate outside the tensor cores
-H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int32 instructions per 64-bit equality and its conditional add in
-# join.cu's lane loop: two ISETP (low word, then high word chained) and one
-# predicated IADD
-INT32_OPS_PER_COMPARE = 3
-# int32 instructions a window of seed.cu at least issues: the 64-bit bugged
-# Wang mix (seven steps of 64-bit shifts, adds and xors, 38), the canonical
-# min (3 to compare, 2 to select) and the threshold test (2); the k-mer
-# extraction is not counted
-INT32_OPS_PER_WINDOW = 45
+# SM clocks a second: 132 SMs at the 1.98 GHz boost (Hopper whitepaper);
+# the data sheet has no integer rate outside the tensor cores
+H100_SM_CLOCKS_PER_S = 132 * 1.98e9
+
+
+def _sm_clocks(alu=0.0, fma=0.0, either=0.0, quarter=0.0, other=0.0):
+    """The least SM clocks that issue this many 32-bit lane-instructions,
+    each counted by the pipe that must run it. A Hopper SM dispatches 4
+    warp instructions (128 lanes) a clock (whitepaper: 32 threads a clock
+    a partition); its ALU pipe (SHF, LOP3, ISETP, SEL) and its FMA pipe
+    (IMAD) each take 64 lanes a clock; ``either`` is work that either pipe
+    can do (an add or a shift-and-add: IADD3 or LEA on the ALU pipe, IMAD
+    on the FMA pipe); ``quarter`` (POPC, BREV) runs at 16 a clock (CUDA C
+    programming guide, throughput of arithmetic instructions, 9.0);
+    ``other`` (SHFL, VOTE) only takes issue slots."""
+    return max(alu / 64, fma / 64, quarter / 16,
+               (alu + fma + either + quarter + other) / 128)
+
+
+# a 64-bit equality and its conditional add in join.cu's lane loop: two
+# ISETP (low word, then high word chained) and one predicated add
+COMPARE_CLOCKS = _sm_clocks(alu=2, either=1)
+# a k-mer window of seed.cu or seed_pack.cu (B6, B7, B9, B10), counted in
+# the cheapest form of common.cuh's pair code (k >= 17: two adjacent
+# windows a lane, the second's forward k-mer rolled from the first's),
+# per window:
+#   ALU 29: the bases (2 funnel shifts); the forward k-mer's pair swap and
+#     shift down (2 SHF, 1 LOP3: half of a pair's); the rolled window's
+#     base and high word (1 SHF, 1 LOP3); the reverse complement (2 LOP3);
+#     the canonical min (2 ISETP, 2 SEL); the mix's three 64-bit
+#     xor-shifts (6 SHF, 6 LOP3, the NOT folded in); the threshold and
+#     length tests (3 ISETP); the rank's lane masks (1 LOP3);
+#   FMA 8: the mix's four 64-bit multiplies by constants (an IMAD.WIDE.U32
+#     and an IMAD each);
+#   either 4: the pair swap's left shift (1), the rolled window's low word
+#     (0.5), the rank's adds (2.5);
+#   quarter 2: a pair's 2 BREV and 2 POPC (the compiled kernels' count);
+#   other 2.5: a pair's 3 SHFL and 2 VOTE.
+# The ALU pipe binds: 29 / 64 = 0.453 clocks a window (all 45.5 issue in
+# 0.355). The compiled kernels issue more (kernel_ab prints their SASS).
+WINDOW_CLOCKS = _sm_clocks(alu=29, fma=8, either=4, quarter=2, other=2.5)
 # the small-database phase: assemblies sketched with `sketch -g` (the merge
 # regime), and a generated database in the bucket regime
 ASSEMBLIES = 256               # genomes of 2-6 Mbp, about 1 Gbp in all
@@ -1103,7 +1132,7 @@ def _small_db_kernels(dc, smp, paths, launches, sk_launches, record):
            err, _cuda_ms(b5p, 20),
            _cuda_ms(lambda: bj.join_counts_plain(ikey, dk, dw), 2),
            _join_bytes(ikey, dw, B * CI * 4),
-           _live_compares(ikey, dw) * INT32_OPS_PER_COMPARE,
+           _live_compares(ikey, dw) * COMPARE_CLOCKS,
            n_launches=launches["B5p_bucket_join"],
            profiler_ms=_profiler_ms(b5p, "join_kernel"),
            **_join_extras("B5p_bucket_join", bj._MODE_COUNTS, ikey,
@@ -1131,7 +1160,7 @@ def _small_db_kernels(dc, smp, paths, launches, sk_launches, record):
            _cuda_ms(lambda: sd.seed_packed(packed, lens, c=C, k=K), 20),
            _cuda_ms(lambda: sd.seed_packed_plain(packed, lens, c=C, k=K), 3),
            N * L // 4 + N * 4 + N * L * 9,
-           _live_windows(lens, K) * INT32_OPS_PER_WINDOW,
+           _live_windows(lens, K) * WINDOW_CLOCKS,
            n_launches=sk_launches["B7_seed"],
            **_seed_extras(lambda: sd.seed_packed(packed, lens, c=C, k=K)))
 
@@ -1346,6 +1375,9 @@ def _profile_phase(a, dev):
           f"{PIPE_CAP} in the B7 oracle: {over[PIPE_CAP]}, past 16: "
           f"{over[16]})")
     print("one-shot profile, SYLPH_SEED_T=1 (s): " + json.dumps(s_stages))
+    print("A5b, sketch stage of the same 64 batches: " + json.dumps(dict(
+        q_b6_ms=stages["sketch_s"] * 1e3,
+        s_transpose_and_b9_ms=s_stages["sketch_s"] * 1e3)))
     return batches[0], lens[0], q_launches, s_launches
 
 
@@ -1354,7 +1386,8 @@ def _gtdb_pipeline_phase(dc, codes):
     main path's 7,158,278 reads packed into [65,536, 256] batches (lengths
     150, the last batch padded with length-0 rows), sketch_batch (B6) per
     batch, condense_stream (B8), the occurrence-stream hist_device_stream
-    (folded on the card) and the statistics."""
+    (folded on the card) and the statistics. Returns (the first batch, its
+    lengths, the launches)."""
     import torch
 
     from sylph_tpu_torch.gpu import _cuda
@@ -1442,40 +1475,50 @@ def _gtdb_pipeline_phase(dc, codes):
           f" occurrence-stream sweep probe exact, [G, 64] hist == B7 "
           f"oracle ({int(want[:, 1:].sum())} hits over {G} genomes)")
     print("one-shot gtdb (r): " + json.dumps(split))
-    return launches
+    return batches[0], lens[0], launches
 
 
-def _pipeline_kernels(dev, batch, lens, q_launches, s_launches, record):
+def _pipeline_kernels(dev, batch, lens, q_launches, s_launches, r_batch,
+                      record):
     """B6, B9 and B10 on one [65,536, 256] batch of (q) against their plain
-    versions, plus an overflow case (L = 512, c = 2: more than 128
-    survivors a read) and B10 at k = 15."""
+    versions, B6 on one of (r)'s batches (150-base reads in 256-base
+    rows), plus an overflow case (L = 512, c = 2: more than 128 survivors
+    a read) and B10 at k = 15."""
     import torch
 
     from sylph_tpu_torch.gpu import seed_pack as sp
 
     N, L = batch.shape
-    ops = _live_windows(lens, K) * INT32_OPS_PER_WINDOW
+    clocks = _live_windows(lens, K) * WINDOW_CLOCKS
     io = N * L + N * 4
     bt = batch.t().contiguous()
     cap_t = sp.cap_rows_t(L, C)
+    rb, rl, r_launches = r_batch
     cases = (
         ("B6_seed_pack", ":283", q_launches["B6_seed_pack"], N * PIPE_CAP,
          lambda: sp.seed_pack(batch, lens, c=C, k=K, lanes=PIPE_CAP),
-         lambda: sp.seed_pack_plain(batch, lens, c=C, k=K, lanes=PIPE_CAP)),
+         lambda: sp.seed_pack_plain(batch, lens, c=C, k=K, lanes=PIPE_CAP),
+         "rows", clocks),
         ("B6_seed_pack (128 lanes)", ":283", 0, N * 128,
          lambda: sp.seed_pack(batch, lens, c=C, k=K),
-         lambda: sp.seed_pack_plain(batch, lens, c=C, k=K)),
+         lambda: sp.seed_pack_plain(batch, lens, c=C, k=K), "rows", clocks),
+        ("B6_seed_pack (gtdb reads)", ":283", r_launches["B6_seed_pack"],
+         N * PIPE_CAP,
+         lambda: sp.seed_pack(rb, rl, c=C, k=K, lanes=PIPE_CAP),
+         lambda: sp.seed_pack_plain(rb, rl, c=C, k=K, lanes=PIPE_CAP),
+         "rows", _live_windows(rl, K) * WINDOW_CLOCKS),
         ("B9_seed_pack_t", ":501", s_launches["B9_seed_pack_t"], N * cap_t,
          lambda: sp.seed_pack_t(bt, lens, c=C, k=K),
-         lambda: sp.seed_pack_t_plain(bt, lens, c=C, k=K)),
+         lambda: sp.seed_pack_t_plain(bt, lens, c=C, k=K), "cols", clocks),
         ("B10_seed_compact", ":183", 0, N * 128,
          lambda: sp.seed_compact(batch, lens, c=C, k=K),
-         lambda: sp.seed_compact_plain(batch, lens, c=C, k=K)))
-    for name, line, n_launch, out_slots, kern, plain in cases:
+         lambda: sp.seed_compact_plain(batch, lens, c=C, k=K), "rows", clocks))
+    for name, line, n_launch, out_slots, kern, plain, kind, n_clocks in cases:
         err = _same(name, (kern(),), (plain(),))
         record(name, "seed_pack.cu", "sylph_tpu/tpu/pallas_seeding.py"
                + line, err, _cuda_ms(kern, 20), _cuda_ms(plain, 3),
-               io + out_slots * 8, ops, n_launches=n_launch)
+               io + out_slots * 8, n_clocks, n_launches=n_launch,
+               **_seed_pack_extras(kern, kind))
     print("B9's transpose of the batch (the pipeline's, before B9): "
           f"{_cuda_ms(lambda: batch.t().contiguous(), 20):.4f} ms")
     gen = torch.Generator(device=dev)
@@ -1615,6 +1658,15 @@ def _seed_extras(fn) -> dict:
                 occupancy=sd.seed_occupancy())
 
 
+def _seed_pack_extras(fn, kind: str) -> dict:
+    """A csrc/seed_pack.cu row's (B6, B9, B10) torch.profiler device time
+    and the card's occupancy readout for its kernel (``kind``: the row
+    kernel "rows" or the column kernel "cols")."""
+    from sylph_tpu_torch.gpu import seed_pack as sp
+    return dict(profiler_ms=_profiler_ms(fn, f"seed_pack_{kind}"),
+                occupancy=sp.seed_pack_occupancy(kind))
+
+
 def _fill_extras(fn, P: int, NC: int, CS: int) -> dict:
     """A B1 row's torch.profiler device time, and the card's occupancy
     readout and cells a block of its launch plan."""
@@ -1702,15 +1754,16 @@ def _kernels(dc, loaded, launches, reads):
 
     rows = []
 
-    def record(name, src, replaces, err, ms, plain_ms, nbytes, ops,
+    def record(name, src, replaces, err, ms, plain_ms, nbytes, clocks,
                library_ms=None, n_launches=None, **extra):
         """One kernels-JSON row; the bound is the larger of the bytes the
-        call must move over the HBM rate and its int32 operations over the
-        INT32 issue rate. Launches are the GTDB-scale path's unless given
-        (another path's count). ``extra`` keys (join.cu's profiler time and
-        occupancy) join the row."""
+        call must move over the HBM rate and the SM clocks its operations
+        need at least (``_sm_clocks``) over the card's SM clock rate.
+        Launches are the GTDB-scale path's unless given (another path's
+        count). ``extra`` keys (join.cu's profiler time and occupancy)
+        join the row."""
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = ops / H100_INT32_OPS_PER_S * 1e3
+        t_ops = clocks / H100_SM_CLOCKS_PER_S * 1e3
         rows.append(dict(
             name=name, route="cuda", source=f"sylph_tpu_torch/csrc/{src}",
             replaces=replaces,
@@ -1757,7 +1810,7 @@ def _kernels(dc, loaded, launches, reads):
                ikey, gidg, dk, dw, CAPR=capr, **jkw), 2),
            _join_bytes(ikey, dw, B // TB * capr * CI * 4,
                        bj.join_counts(ikey, dk, dw, nt=nt, tile=tile)),
-           _live_compares(ikey, dw, nt, tile) * INT32_OPS_PER_COMPARE,
+           _live_compares(ikey, dw, nt, tile) * COMPARE_CLOCKS,
            profiler_ms=_profiler_ms(b2, "join_kernel"),
            **_join_extras("B2_join_codes_compact", bj._MODE_COMPACT, ikey,
                           dk[None], dw[None], nt, tile))
@@ -1813,7 +1866,7 @@ def _kernels(dc, loaded, launches, reads):
                                                 **jkw), 2),
            _join_bytes(ikey, ddw, B * CI * 4,
                        bj.join_counts(ikey, ddk, ddw, nt=nt, tile=tile)),
-           _live_compares(ikey, ddw, nt, tile) * INT32_OPS_PER_COMPARE,
+           _live_compares(ikey, ddw, nt, tile) * COMPARE_CLOCKS,
            profiler_ms=_profiler_ms(b4, "join_kernel"),
            **_join_extras("B4_join_codes", bj._MODE_CODES, ikey, ddk[None],
                           ddw[None], nt, tile))
@@ -1831,7 +1884,7 @@ def _kernels(dc, loaded, launches, reads):
            err, _cuda_ms(b5, 10),
            _cuda_ms(lambda: bj.join_counts_plain(ikey, fk, fw), 1),
            _join_bytes(ikey, fw, B * CI * 4),
-           _live_compares(ikey, fw) * INT32_OPS_PER_COMPARE,
+           _live_compares(ikey, fw) * COMPARE_CLOCKS,
            profiler_ms=_profiler_ms(b5, "join_kernel"),
            **_join_extras("B5_join_counts", bj._MODE_COUNTS, ikey,
                           fk[None], fw[None]))
@@ -1903,8 +1956,8 @@ def _batched_kernels(dc, tables, launches, record):
     capr = _capr(density, TB)
     jkw = dict(G=GE, nt=nt, tile=g.tile)
     counts = bj.join_counts_batched(ikey, dk, dw, nt=nt, tile=g.tile)
-    ops = sum(_live_compares(ikey, dw[s], nt, g.tile)
-              for s in range(S)) * INT32_OPS_PER_COMPARE
+    clocks = sum(_live_compares(ikey, dw[s], nt, g.tile)
+              for s in range(S)) * COMPARE_CLOCKS
     print(f"batched chunk 0: S={S}, P={P}, CS={CS}, LW={LW}, "
           f"density={density:.4f}, capr={capr}")
 
@@ -1947,7 +2000,7 @@ def _batched_kernels(dc, tables, launches, record):
         at_one(name, kern, single)
         record(name, "join.cu", replaces, err,
                _cuda_ms(lambda: kern(dk, dw), 10),
-               _cuda_ms(lambda: plain(dk, dw), 1), nbytes, ops,
+               _cuda_ms(lambda: plain(dk, dw), 1), nbytes, clocks,
                n_launches=launches[name],
                profiler_ms=_profiler_ms(lambda: kern(dk, dw), "join_kernel",
                                         10),
@@ -1985,7 +2038,7 @@ def _seed_kernels(device, reads, record):
                    _cuda_ms(lambda: sd.seed_packed_plain(packed, lens, c=c,
                                                          k=k), 3),
                    N * L // 4 + N * 4 + N * L * 9,
-                   _live_windows(lens, k) * INT32_OPS_PER_WINDOW,
+                   _live_windows(lens, k) * WINDOW_CLOCKS,
                    **_seed_extras(lambda: sd.seed_packed(packed, lens, c=c,
                                                          k=k)))
 
@@ -2143,8 +2196,9 @@ def _kbench_phase(record):
             continue
         if launches[r["kernel"]] <= 0:
             _fail(f"{r['name']} was not launched in (u)")
+        # kbench counts its chains' instructions as the ALU pipe's
         record(r["name"], "kbench.cu", r["replaces"], 0.0, r["ms"],
-               r["plain_ms"], r["nbytes"], r["ops"],
+               r["plain_ms"], r["nbytes"], _sm_clocks(alu=r["ops"]),
                library_ms=r["library_ms"], n_launches=launches[r["kernel"]])
     print(f"check (u): {sum(r['kernel'] is not None for r in rows)} "
           "microkernels and the real kernels bit-identical to their plain "
@@ -2267,7 +2321,7 @@ def main(argv=None) -> int:
         cohort[host_path] = host_tbl[2]
         c_launches = _cohort_phase(dc, db, cohort, tsv, per)
         batch, blens, q_launches, s_launches = _profile_phase(a, dc.device)
-        _gtdb_pipeline_phase(dc, read_codes)
+        r_batch = _gtdb_pipeline_phase(dc, read_codes)
         del read_codes
         small_db, asm_paths, sk_launches = _sketch_phase(a, work)
         genomes, small = _merge_phase(a, work, small_db)
@@ -2279,7 +2333,7 @@ def main(argv=None) -> int:
         _small_db_kernels(bdc, bsmp, asm_paths, b_launches, sk_launches,
                           record)
         _pipeline_kernels(dc.device, batch, blens, q_launches, s_launches,
-                          record)
+                          r_batch, record)
         for tag, phase in (
                 ("t", lambda: _row_repack_phase(shared, record)),
                 ("u", lambda: _kbench_phase(record)),
@@ -2289,6 +2343,10 @@ def main(argv=None) -> int:
             print(f"phase ({tag}): {time.perf_counter() - t0:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    if _cuda.PROFILE_MISSES:
+        print("profiler windows that showed another number of launches "
+              "(kernel, launches, reps), each taken again: "
+              f"{_cuda.PROFILE_MISSES}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -26,8 +26,9 @@
 // (code modes) and the output as written; at a GTDB-scale chunk (B = 32768,
 // CI = 1152) that is about 0.37 GB for B2 (0.11 ms at 3.35 TB/s) and 0.48
 // GB for B4 (0.145 ms). The compares it needs are the live slots times the
-// live lanes they meet, three int32 instructions each (two chained ISETP,
-// one predicated IADD) at 132 SMs x 64 INT32 lanes x 1.98 GHz.
+// live lanes they meet, three int32 instructions each (two chained ISETP
+// on the ALU pipe, 64 lanes a clock an SM, and one predicated add on
+// either pipe; chip_smoke.py's COMPARE_CLOCKS) at 132 SMs x 1.98 GHz.
 //
 // Design. A CTA of 64 threads owns 128 adjacent columns of one TB-row block,
 // two adjacent columns a thread (one 16-byte key load a row). The CTAs of

@@ -6,8 +6,9 @@
 // (:78) bodies, whose times attribute seed_pack_pallas's budget on the TPU.
 // Here they become their Hopper analogues on the same [rows, 256] batch of
 // 32-bit words (int32 bit patterns, uint32 arithmetic), plus the
-// primitives of csrc/seed_pack.cu's row kernel (B6), which reaches a third
-// of its bound on the H100:
+// primitives of the first design of csrc/seed_pack.cu's row kernel (B6: a
+// block of 256 threads a read, ranked through shared memory; the row
+// kernel now ranks by warp ballots alone, common.cuh::rank_piece):
 //   identity      a copy: the HBM round trip every other line pays
 //   alu           y = x; y += x >> (1 + i % 7), i < steps (shifts and adds
 //                 in inline PTX, so the compiler cannot fold the chain)
@@ -20,14 +21,15 @@
 //   sublane_roll  each 256-row tile rotated by 1 + i % 7 rows a step
 //                 (sublane_roll_chain), in 16-lane strips through shared
 //                 memory
-//   rank          B6's ranking pass `steps` times: a predicate (bit i % 31
+//   rank          that ranking pass `steps` times: a predicate (bit i % 31
 //                 of the word), a warp ballot and __popc, the 8 warp counts
 //                 scanned in shared memory, three barriers; y sums the
 //                 exclusive ranks
 //   barrier       alu with a __syncthreads() before every step (256-thread
-//                 blocks, as B6): barrier minus alu is the barriers' cost
-//   funnel        y = __funnelshift_r(y, x, 1 + i % 7), B6's word
-//                 extraction, as a dependent chain
+//                 blocks, as that design): barrier minus alu is the
+//                 barriers' cost
+//   funnel        y = __funnelshift_r(y, x, 1 + i % 7), the seed kernels'
+//                 word extraction, as a dependent chain
 // The plain PyTorch version of each is in sylph_tpu_torch/kbench.py, which
 // holds every kernel bit for bit against it before timing it.
 //

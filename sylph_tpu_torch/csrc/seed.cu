@@ -13,10 +13,11 @@
 // column i > L - k therefore has keep 0. The unpack pass of the JAX
 // pipeline (pipeline.py::unpack_bases) is fused away.
 //
-// Bound on the H100: about balanced. Bytes: N*L/4 read and N*L*9 written
-// (155 MB for a [65536, 256] batch, 46 us at 3.35 TB/s); operations: the
-// 64-bit mix, the canonical choice and the threshold test are about 45
-// int32 instructions a window (about 45 us at the INT32 issue rate).
+// Bound on the H100: bytes. N*L/4 read and N*L*9 written (155 MB for a
+// [65536, 256] batch, 46 us at 3.35 TB/s); operations: the window's mix,
+// canonical choice and threshold test, counted by pipe in chip_smoke.py
+// (WINDOW_CLOCKS: 29 ALU-pipe instructions a window at 64 lanes a clock an
+// SM), about 26 us.
 //
 // Design. The first version ran a block of 256 threads a row, one window a
 // thread behind a block barrier: 65,536 tiny blocks, no overlap of a
@@ -43,8 +44,8 @@
 // 256] (78.5% of the bound: 155 MB moved at 2.63 TB/s; kbench's identity
 // copy moves 2.92 TB/s by the same timer in python -m
 // sylph_tpu_torch.kernel_ab), 0.0303 ms on [2048, 4096] genome rows. The
-// compiled mix takes more instructions than the 45 a window above
-// (kernel_ab prints the SASS counts); trial builds with fewer
+// compiled mix takes more instructions than the count above (kernel_ab
+// prints the SASS counts); trial builds with fewer
 // instructions, or with other register budgets, were no faster, so the
 // stores may be what holds it, but no measurement here shows that.
 
@@ -53,44 +54,8 @@
 #define SEED_THREADS 256                  // 8 warps a block
 #define SEED_WARPS (SEED_THREADS / 32)
 #define SEED_MIN_BLOCKS 4                 // at most 64 registers a thread
-#define PIECE 256                         // bases (windows) a warp takes
-#define PIECE_WORDS (PIECE / 16)          // plus a 2-word halo
-#define FULL 0xffffffffu
 
 namespace {
-
-__device__ __forceinline__ uint64_t wang_mix_bugged(uint64_t key) {
-  key = ~(key * 0x200001ULL);     // the reference's bug: NOT(k + k<<21)
-  key = key ^ (key >> 24);
-  key = key * 265ULL;             // k + (k << 3) + (k << 8)
-  key = key ^ (key >> 14);
-  key = key * 21ULL;              // k + (k << 2) + (k << 4)
-  key = key ^ (key >> 28);
-  return key * 0x80000001ULL;     // k + (k << 31)
-}
-
-// The 32 bases from bit s (even, < 32) of w0 on through w1 and w2,
-// LSB-first.
-__device__ __forceinline__ uint64_t bases_at(uint32_t w0, uint32_t w1,
-                                             uint32_t w2, int s) {
-  return (uint64_t)__funnelshift_r(w0, w1, s) |
-         ((uint64_t)__funnelshift_r(w1, w2, s) << 32);
-}
-
-// The hash of the window whose bases start at bit s of w0: the reverse
-// complement is (~v) masked to 2k bits, the forward k-mer v's 2-bit groups
-// reversed (bit reverse, then swap the bits of each pair), shifted down by
-// 64 - 2k.
-__device__ __forceinline__ uint64_t window_hash(uint32_t w0, uint32_t w1,
-                                                uint32_t w2, int s,
-                                                uint64_t kmask, int down) {
-  const uint64_t v = bases_at(w0, w1, w2, s);
-  const uint64_t rc = ~v & kmask;
-  uint64_t f = __brevll(v);
-  f = ((f >> 1) & 0x5555555555555555ULL) | ((f & 0x5555555555555555ULL) << 1);
-  f >>= down;
-  return wang_mix_bugged(f < rc ? f : rc);
-}
 
 // Bits 0-3 of x to bytes 0-3 of a word (each byte 0 or 1).
 __device__ __forceinline__ uint32_t spread4(uint32_t x) {
@@ -111,7 +76,7 @@ seed_kernel(const uint32_t* __restrict__ packed,
             uint8_t* __restrict__ keep) {
   const int lane = threadIdx.x & 31;
   const int L = nw * 16;
-  const int pieces = (nw + PIECE_WORDS - 1) / PIECE_WORDS;
+  const int pieces = (nw + SEED_PIECE_WORDS - 1) / SEED_PIECE_WORDS;
   const long long units = n_rows * pieces;
   const long long stride = (long long)gridDim.x * SEED_WARPS;
   const long long stride_r = stride / pieces;
@@ -125,8 +90,9 @@ seed_kernel(const uint32_t* __restrict__ packed,
   // the piece's words (lane j < 18: word 16p + j, 0 past the row) and the
   // row's length, loaded one unit ahead
   auto load = [&](long long r, int q, uint32_t& w, int& n) {
-    const int j = q * PIECE_WORDS + lane;
-    w = (lane < PIECE_WORDS + 2 && j < nw) ? __ldg(packed + r * nw + j) : 0u;
+    const int j = q * SEED_PIECE_WORDS + lane;
+    w = (lane < SEED_PIECE_WORDS + 2 && j < nw) ? __ldg(packed + r * nw + j)
+                                                : 0u;
     n = __ldg(lengths + r);
   };
   uint32_t word = 0;
@@ -146,19 +112,19 @@ seed_kernel(const uint32_t* __restrict__ packed,
     }
     if (u < units) load(row, p, word, len);
 
-    const int i0 = cp * PIECE;                 // the piece's first window
-    const int rem = min(PIECE, L - i0);        // its windows (a multiple of 16)
-    const uint32_t nx1 = __shfl_down_sync(FULL, cur, 1);   // word j + 1
-    const uint32_t nx2 = __shfl_down_sync(FULL, cur, 2);   // word j + 2
+    const int i0 = cp * SEED_PIECE;            // the piece's first window
+    const int rem = min(SEED_PIECE, L - i0);   // its windows (a multiple of 16)
+    const uint32_t nx1 = __shfl_down_sync(SEED_FULL, cur, 1);   // word j + 1
+    const uint32_t nx2 = __shfl_down_sync(SEED_FULL, cur, 2);   // word j + 2
     long long* hrow = hash + crow * L + i0;
     unsigned ev[4], od[4];
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       const int b = t * 64 + 2 * lane;         // the lane's even window
       const int src = b >> 4;
-      const uint32_t a0 = __shfl_sync(FULL, cur, src);
-      const uint32_t a1 = __shfl_sync(FULL, nx1, src);
-      const uint32_t a2 = __shfl_sync(FULL, nx2, src);
+      const uint32_t a0 = __shfl_sync(SEED_FULL, cur, src);
+      const uint32_t a1 = __shfl_sync(SEED_FULL, nx1, src);
+      const uint32_t a2 = __shfl_sync(SEED_FULL, nx2, src);
       const int s = 2 * (b & 15);
       const uint64_t h0 = window_hash(a0, a1, a2, s, kmask, down);
       const uint64_t h1 = window_hash(a0, a1, a2, s + 2, kmask, down);
@@ -167,8 +133,8 @@ seed_kernel(const uint32_t* __restrict__ packed,
         *reinterpret_cast<longlong2*>(hrow + b) =
             make_longlong2((long long)h0, (long long)h1);
       const int i = i0 + b;
-      ev[t] = __ballot_sync(FULL, in && h0 < thr && i + k <= clen);
-      od[t] = __ballot_sync(FULL, in && h1 < thr && i + 1 + k <= clen);
+      ev[t] = __ballot_sync(SEED_FULL, in && h0 < thr && i + k <= clen);
+      od[t] = __ballot_sync(SEED_FULL, in && h1 < thr && i + 1 + k <= clen);
     }
     // windows 8*lane .. 8*lane + 7: step lane / 8, lanes 4*(lane % 8) ..
     if (8 * lane < rem) {
@@ -204,7 +170,7 @@ extern "C" int seed_launch(const uint32_t* packed, const int* lengths,
   }
   if (n == 0) return static_cast<int>(cudaGetLastError());
   const int nw = L >> 4;
-  const long long units = n * ((nw + PIECE_WORDS - 1) / PIECE_WORDS);
+  const long long units = n * ((nw + SEED_PIECE_WORDS - 1) / SEED_PIECE_WORDS);
   const long long need = (units + SEED_WARPS - 1) / SEED_WARPS;
   seed_kernel<<<static_cast<unsigned>(need < grid ? need : grid),
                 SEED_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -16,15 +16,17 @@ read's surviving hashes in window order, int64 keys with pad -1
                      survivors a read, lanes cap..127 -1; any k in 1..31
 
 The Pallas kernels pack with butterfly routing networks; csrc/seed_pack.cu
-writes each survivor at its rank, one row-major kernel with a capacity
-argument for B6 and B10 and one column-walking kernel for B9. On a CPU
-tensor each wrapper runs its plain version (B7's plain seeding,
-gpu/seeding.py::seed_hashes, then a per-row rank); on a CUDA tensor it
-launches its kernel (uint8 codes, int32 lengths) or raises. Lengths past L
-count as L.
+writes each survivor at its rank, one row kernel with a capacity argument
+for B6 and B10 (a warp a read, a grid of the resident blocks striding over
+the reads: ``row_grid``) and one column kernel for B9 (a block a tile of
+128 read columns: ``col_blocks``). On a CPU tensor each wrapper runs its
+plain version (B7's plain seeding, gpu/seeding.py::seed_hashes, then a
+per-row rank); on a CUDA tensor it launches its kernel (uint8 codes, int32
+lengths) or raises. Lengths past L count as L.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,7 +36,9 @@ from .seeding import compact_by_position, seed_hashes, threshold
 CAP_LANES = 128        # B6/B10 output width
 BLOCK_ROWS = 256       # Pallas row block of B6/B10: N % 256 or N < 256
 T_LANES = 512          # Pallas column block of B9
-_MAX_L = 1 << 16      # the row kernel stages L/16 + 2 words (16 KB here)
+ROW_WARPS = 8          # csrc/seed_pack.cu: reads a row-kernel block takes
+COL_TILE = 128         # read columns a column-kernel block takes
+COL_STAGE = 32         # output rows it stages in shared memory
 
 
 def compact_cap(L: int, c: int) -> int:
@@ -45,6 +49,20 @@ def compact_cap(L: int, c: int) -> int:
 def cap_rows_t(L: int, c: int) -> int:
     """B9's per-read capacity: 4L/c + 8 rounded up to 8, at most L."""
     return min(L, -(-(4 * L // c + 8) // 8) * 8)
+
+
+def row_grid(n: int, resident: int) -> int:
+    """Blocks of the row kernel (B6, B10) for ``n`` reads: a warp a read,
+    ROW_WARPS a block, at most the ``resident`` blocks the card holds at
+    once, which then stride over the reads."""
+    return min(-(-n // ROW_WARPS), resident)
+
+
+def col_blocks(n: int) -> int:
+    """Blocks of the column kernel (B9) for ``n`` reads: a block a tile of
+    COL_TILE read columns (it walks L in pieces of 256 bases and stages
+    its first COL_STAGE output rows in shared memory)."""
+    return -(-n // COL_TILE)
 
 
 def _check(c: int, k: int, k_min: int) -> None:
@@ -100,7 +118,7 @@ def seed_pack_t_plain(bases_t: torch.Tensor, lengths: torch.Tensor, *,
 
 def _launch(entry: str, kname: str, bases: torch.Tensor,
             lengths: torch.Tensor, n: int, L: int, k: int, c: int,
-            out: torch.Tensor, *caps) -> torch.Tensor:
+            out: torch.Tensor, *caps, grid: int) -> torch.Tensor:
     dev = bases.device
     _cuda.require(bases, "bases", torch.uint8, 2, dev)
     _cuda.require(lengths, "lengths", torch.int32, 1, dev)
@@ -112,23 +130,41 @@ def _launch(entry: str, kname: str, bases: torch.Tensor,
             _cuda.ptr(bases), _cuda.ptr(lengths), ctypes.c_int64(n),
             ctypes.c_int(L), ctypes.c_int(k), ctypes.c_uint64(threshold(c)),
             *[ctypes.c_int(x) for x in caps], _cuda.ptr(out),
-            _cuda.stream_ptr(bases))
+            ctypes.c_int64(grid), _cuda.stream_ptr(bases))
     _cuda.check(lib, rc, entry)
     _cuda.count_launch(kname)
     return out
+
+
+def seed_pack_occupancy(kind: str = "rows") -> dict:
+    """What the card reports for a launch of csrc/seed_pack.cu's row
+    (``"rows"``: B6, B10) or column kernel (``"cols"``: B9) on the current
+    device (card only); see ``_cuda.occupancy``."""
+    if kind not in ("rows", "cols"):
+        raise ValueError(f"kind must be 'rows' or 'cols', got {kind!r}")
+    return _cuda.occupancy(_cuda.library("seed_pack"), "seed_pack_occupancy",
+                           ctypes.c_int(kind == "cols"))
+
+
+@functools.cache
+def _resident_rows(dev: torch.device) -> int:
+    """Row-kernel blocks resident on ``dev`` at once (worked out once per
+    device)."""
+    with torch.cuda.device(dev):
+        per_sm = seed_pack_occupancy("rows")["ctas_per_sm"]
+    return per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _launch_rows(kname: str, bases: torch.Tensor, lengths: torch.Tensor,
                  c: int, k: int, cap: int, width: int) -> torch.Tensor:
     """The row kernel: [N, width] with at most ``cap`` survivors a row."""
     N, L = bases.shape
-    if L > _MAX_L:
-        raise ValueError(f"L={L} exceeds the row kernel's {_MAX_L} bases")
     if bases.data_ptr() % 16:
         raise ValueError("bases: rows must start 16-byte aligned")
     out = torch.empty((N, width), dtype=torch.int64, device=bases.device)
     return _launch("seed_pack_launch", kname, bases, lengths, N, L, k, c,
-                   out, cap, width)
+                   out, cap, width,
+                   grid=row_grid(N, _resident_rows(bases.device)))
 
 
 def seed_pack(bases: torch.Tensor, lengths: torch.Tensor, *, c: int, k: int,
@@ -182,4 +218,4 @@ def seed_pack_t(bases_t: torch.Tensor, lengths: torch.Tensor, *, c: int,
     cap_rows = cap_rows_t(L, c)
     out = torch.empty((cap_rows, N), dtype=torch.int64, device=bases_t.device)
     return _launch("seed_pack_t_launch", "B9_seed_pack_t", bases_t, lengths,
-                   N, L, k, c, out, cap_rows)
+                   N, L, k, c, out, cap_rows, grid=col_blocks(N))

@@ -9,13 +9,13 @@ runs on the card only: without CUDA it says so and exits 2. On the
 carried as int32 bit patterns with uint32 arithmetic) it times, with CUDA
 events, the microkernels of csrc/kbench.cu (see its header: a copy, ALU
 chains, lane rolls through shared memory at full and half width, warp
-shuffle rolls, sublane rolls, and B6's ranking pass, barriers and funnel
-shifts, each chain at 16 and 64 steps) and then the real kernels: B6
-(gpu/seed_pack.py::seed_pack) at the pipeline's 13 lanes and at 128, B9
-(seed_pack_t) alone, and the transpose plus B9, at c = 200, k = 31. Every
-kernel is first held bit for bit against its plain PyTorch version (below,
-or gpu/seed_pack.py's); a mismatch raises. Each line prints its
-milliseconds, its cost per step over the identity's time (as
+shuffle rolls, sublane rolls, and the ranking pass, barriers and funnel
+shifts of B6's first design, each chain at 16 and 64 steps) and then the
+real kernels: B6 (gpu/seed_pack.py::seed_pack) at the pipeline's 13 lanes
+and at 128, B9 (seed_pack_t) alone, and the transpose plus B9, at c = 200,
+k = 31. Every kernel is first held bit for bit against its plain PyTorch
+version (below, or gpu/seed_pack.py's); a mismatch raises. Each line
+prints its milliseconds, its cost per step over the identity's time (as
 scripts/kbench.py does) and, for the real kernels, Gbp/s.
 
 Importing this module builds nothing: the kernels build at their first

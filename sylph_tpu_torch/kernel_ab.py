@@ -1,6 +1,7 @@
 """Kernels of two trees of the port, in turns, in one process on the card.
 
     python -m sylph_tpu_torch.kernel_ab OLD_TREE [--reps 20] [--seed 0]
+                                        [--case NAME ...]
 
 OLD_TREE is the root of another checkout of the repo (an earlier commit
 unpacked with ``git archive`` into a directory that .gitignore lists). Its
@@ -11,9 +12,10 @@ of ``CASES`` both trees' wrappers run on the same inputs, made from
 ``--seed``; both outputs are held bit for bit against the plain version
 (this tree's wrapper on CPU copies of the inputs) and a mismatch raises;
 then both are timed by torch.profiler device time in turns (old, new, new,
-old). Prints the card's name and power limit, a line a case, the SASS
-instruction counts of both trees' kernels and one JSON line. Card only:
-without CUDA it says so and exits 2.
+old). ``--case`` (repeatable) keeps only the named cases. Prints the
+card's name and power limit, a line a case, the SASS instruction counts of
+both trees' kernels and one JSON line. Card only: without CUDA it says so
+and exits 2.
 """
 
 import argparse
@@ -69,6 +71,17 @@ def _pad_stream(rng, n, dtype, dens, row, cap):
     return dict(v=torch.from_numpy(v), row=row, cap=cap)
 
 
+def _codes(rng, N, L, n, t=False):
+    """[N, L] random 2-bit codes, every read ``n`` bases long, at c = 200,
+    k = 31: B6's inputs at the pipeline's 13 lanes, or (``t``) B9's, the
+    codes transposed to one read a column."""
+    bases = torch.from_numpy(rng.integers(0, 4, size=(N, L)).astype(np.uint8))
+    lens = torch.full((N,), n, dtype=torch.int32)
+    if t:
+        return dict(bases_t=bases.t().contiguous(), lengths=lens, c=200, k=31)
+    return dict(bases=bases, lengths=lens, c=200, k=31, lanes=13)
+
+
 def _words(rng, R):
     return dict(kind="identity", x=torch.from_numpy(
         rng.integers(0, 1 << 32, size=(R, 256), dtype=np.uint32)
@@ -98,6 +111,12 @@ CASES = {
                                                    0.0483, 32768, 1536)),
     "kbench identity": ("kbench", "launch", "kb_identity", "kbench",
                         lambda rng: _words(rng, 65536)),
+    "B6 reads": ("gpu.seed_pack", "seed_pack", "seed_pack_rows", "seed_pack",
+                 lambda rng: _codes(rng, 65536, 256, 256)),
+    "B6 gtdb": ("gpu.seed_pack", "seed_pack", "seed_pack_rows", "seed_pack",
+                lambda rng: _codes(rng, 65536, 256, 150)),
+    "B9 reads": ("gpu.seed_pack", "seed_pack_t", "seed_pack_cols",
+                 "seed_pack", lambda rng: _codes(rng, 65536, 256, 256, True)),
 }
 
 
@@ -147,6 +166,8 @@ def main(argv=None) -> int:
     ap.add_argument("old_tree")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--case", action="append", choices=sorted(CASES),
+                    help="time only this case (repeatable)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab needs an NVIDIA GPU (torch.cuda.is_available() "
@@ -161,8 +182,10 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(a.seed)
     out, sources = {}, set()
     for name, (module, wrapper, kernel, source, inputs) in CASES.items():
+        args = inputs(rng)      # for every case: --case moves no inputs
+        if a.case and name not in a.case:
+            continue
         sources.add(source)
-        args = inputs(rng)
         want = getattr(importlib.import_module(f"{__package__}.{module}"),
                        wrapper)(**args)
         on_card = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
@@ -186,6 +209,10 @@ def main(argv=None) -> int:
     for tag, by_src in sass.items():
         for s, counts in by_src.items():
             print(f"{tag} {s}.cu SASS: {counts}")
+    if _cuda.PROFILE_MISSES:
+        print("profiler windows that showed another number of launches "
+              "(kernel, launches, reps), each taken again: "
+              f"{_cuda.PROFILE_MISSES}")
     print(json.dumps({"card": smi, "device_ms": out, "sass": sass}))
     return 0
 

@@ -643,7 +643,7 @@ def test_seed_pack_matches_plain(cuda, N, L, c, k):
             == 128
 
 
-@pytest.mark.parametrize("k", [9, 15])
+@pytest.mark.parametrize("k", [1, 9, 15])
 def test_seed_compact_short_k_matches_plain(cuda, k):
     from sylph_tpu_torch.gpu import seed_pack as sp
     bases, lens = _code_batch(k, 300 - 44, 256, k)
@@ -1139,3 +1139,158 @@ def test_repack_occupancy(cuda):
         assert occ["smem_bytes"] >= plan[1] * width
         assert occ["ctas_per_sm"] >= 5 and occ["clusters_resident"] >= 1
         assert occ["threads"] == 256
+
+
+# ---- csrc/seed_pack.cu: the row kernel (B6, B10), the column kernel (B9) ---
+
+def _read_rows(seed, N, L, k):
+    """Random reads; rows 0-5 of lengths L, 0, k - 1, k, 150 and past L
+    (as many as N holds), rows 6-7 ATAT... repeats (every 31-mer window
+    below u64::MAX / 9) of length L, the rest of random lengths up to
+    L."""
+    rng = np.random.default_rng(seed)
+    bases = rng.integers(0, 4, size=(N, L)).astype(np.uint8)
+    bases[6:8] = np.resize(np.array([0, 3], np.uint8), L)
+    lens = rng.integers(0, L + 1, size=N).astype(np.int32)
+    head = (L, 0, k - 1, k, min(150, L), L + 40, L, L)
+    lens[:min(N, 8)] = head[:min(N, 8)]
+    return torch.from_numpy(bases), torch.from_numpy(lens)
+
+
+def _rows_all(cuda, bases, lens, c, k):
+    """B6 at 128 lanes and at compact_cap lanes, and B10, against their
+    plain versions."""
+    from sylph_tpu_torch.gpu import seed_pack as sp
+    bd, ld = bases.to(cuda), lens.to(cuda)
+    L = bases.shape[1]
+    if k >= 17:
+        cap = sp.compact_cap(L, c)
+        for lanes in (sp.CAP_LANES, cap):
+            _equal((sp.seed_pack(bd, ld, c=c, k=k, lanes=lanes),),
+                   (sp.seed_pack_plain(bases, lens, c=c, k=k, lanes=lanes),))
+    _equal((sp.seed_compact(bd, ld, c=c, k=k),),
+           (sp.seed_compact_plain(bases, lens, c=c, k=k),))
+
+
+@pytest.mark.parametrize("N", [1, 7, 256])
+@pytest.mark.parametrize("L,c", [(128, 3), (384, 20), (512, 2), (4096, 50)])
+def test_seed_pack_rows_geometry_matches_plain(cuda, N, L, c):
+    """The row kernel over 1 to 16 pieces a read (L = 128 is half a
+    piece), N of one read, of fewer reads than a block's 8 warps and of
+    one Pallas block, lengths of 0, k - 1, k, 150, L and past L, more than
+    128 survivors a read (c = 2, the ATAT rows)."""
+    bases, lens = _read_rows(N * 7 + L, N, L, 31)
+    _rows_all(cuda, bases, lens, c, 31)
+
+
+@pytest.mark.parametrize("N,L,blocks", [
+    (8192, 256, None),       # more reads than the card's resident warps
+    (2048, 384, 1),          # 8 warps over 2,048 two-piece reads
+    (256, 1024, 3)])         # 24 warps, the stride not a multiple of 8
+def test_seed_pack_rows_grid_stride_matches_plain(cuda, monkeypatch, N, L,
+                                                  blocks):
+    """The row kernel's grid-stride loop and its prefetch of the next
+    read's first piece: at the card's own grid (5,280 warps on a 132-SM
+    H100 at 5 blocks a SM) and at grids of a few blocks."""
+    from sylph_tpu_torch.gpu import seed_pack as sp
+    if blocks is not None:
+        monkeypatch.setattr(sp, "_resident_rows", lambda dev: blocks)
+    bases, lens = _read_rows(N + L, N, L, 31)
+    _rows_all(cuda, bases, lens, 20, 31)
+
+
+def test_seed_pack_cap_at_piece_edge_and_inside_step(cuda):
+    """The early stop: B6 with its lane count set to read 0's survivors in
+    the windows of its first piece (the cap reached at the piece edge or
+    before it, the next piece's first step skipped), in windows 0-99
+    (inside step 1), in windows 0-383 (at a step edge in the second
+    piece) and one past that, at c = 3 over 512-base reads."""
+    from sylph_tpu_torch.gpu import seed_pack as sp
+    N, L, c, k = 256, 512, 3, 31
+    bases, lens = _read_rows(11, N, L, k)
+    lens[0] = L
+    h, keep = sd.seed_hashes(bases[:1], lens[:1], c=c, k=k)
+    csum = torch.cumsum(keep[0].to(torch.int64), 0)
+    lanes = {int(csum[255]), int(csum[99]), int(csum[383]),
+             int(csum[383]) + 1}
+    bd, ld = bases.to(cuda), lens.to(cuda)
+    for n in sorted(x for x in lanes if 1 <= x <= sp.CAP_LANES):
+        _equal((sp.seed_pack(bd, ld, c=c, k=k, lanes=n),),
+               (sp.seed_pack_plain(bases, lens, c=c, k=k, lanes=n),))
+
+
+def test_seed_pack_long_rows_match_plain(cuda):
+    """L = 2^17 bases a read (512 pieces), N = 8: the row kernel keeps a
+    piece's words in registers, so L has no limit of its own."""
+    bases, lens = _read_rows(17, 8, 1 << 17, 31)
+    _rows_all(cuda, bases, lens, 200, 31)
+
+
+@pytest.mark.parametrize("N", [8, 100, 1024])
+@pytest.mark.parametrize("L,c", [(8, 2), (40, 2), (256, 2), (512, 2),
+                                 (256, 200), (1024, 30)])
+def test_seed_pack_cols_geometry_matches_plain(cuda, N, L, c):
+    """The column kernel: N below one 512-column Pallas block (8; 100,
+    off 16 bytes, read byte by byte) and a multiple of it (1,024: 8
+    tiles); L of less than a word (8), of a word and a half (40), one
+    piece and two (512) and four (1,024); at c = 2 cap_rows is L, so
+    every survivor past the 32 staged rows goes straight to its slot;
+    lengths of 0, k - 1, k, 150, L and past L, the ATAT reads."""
+    from sylph_tpu_torch.gpu import seed_pack as sp
+    k = 21 if L < 31 else 31
+    bases, lens = _read_rows(N + 3 * L, N, L, k)
+    bt = bases.t().contiguous()
+    got = sp.seed_pack_t(bt.to(cuda), lens.to(cuda), c=c, k=k)
+    _equal((got,), (sp.seed_pack_t_plain(bt, lens, c=c, k=k),))
+    if c == 2 and L >= 256:
+        assert int((got != -1).sum(0).max()) > sp.COL_STAGE
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_seed_pack_stress_two_streams_main_shapes(cuda, seed):
+    """B6 (13 lanes) and B9 at (q)'s [65,536, 256] batch, c = 200, k =
+    31, launched 4 times each from two streams at once, interleaved,
+    every launch equal to the plain version (computed on the card)."""
+    from sylph_tpu_torch.gpu import seed_pack as sp
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    bases = torch.randint(0, 4, (65536, 256), generator=gen,
+                          dtype=torch.uint8, device=cuda)
+    lens = torch.randint(0, 300, (65536,), generator=gen,
+                         dtype=torch.int32, device=cuda)
+    bt = bases.t().contiguous()
+    runs = [(lambda: sp.seed_pack(bases, lens, c=200, k=31, lanes=13),
+             sp.seed_pack_plain(bases, lens, c=200, k=31, lanes=13)),
+            (lambda: sp.seed_pack_t(bt, lens, c=200, k=31),
+             sp.seed_pack_t_plain(bt, lens, c=200, k=31))]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(4):
+        for m, (run, _want) in enumerate(runs):
+            for st in streams:
+                with torch.cuda.stream(st):
+                    got.append((m, run()))
+    torch.cuda.synchronize()
+    bad = [i for i, (m, out) in enumerate(got)
+           if not torch.equal(out, runs[m][1])]
+    assert not bad, f"launches {bad} of {len(got)} differ from the plain"
+
+
+def test_seed_pack_occupancy(cuda):
+    """The occupancy readouts of the row and column kernels: 256 threads,
+    at least 5 and 4 blocks a SM (their launch bounds), the column
+    kernel's static tables (words, the 32 staged rows, counts); the row
+    kernel's grid is the resident blocks."""
+    from sylph_tpu_torch.gpu import seed_pack as sp
+    rows, cols = sp.seed_pack_occupancy("rows"), sp.seed_pack_occupancy("cols")
+    for occ, blocks in ((rows, 5), (cols, 4)):
+        assert occ["threads"] == 256 and occ["ctas_per_sm"] >= blocks
+        assert occ["regs"] <= 65536 // (256 * blocks)
+    assert cols["smem_bytes"] >= (sp.COL_TILE * 19 * 4
+                                  + sp.COL_STAGE * sp.COL_TILE * 8)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sp._resident_rows(torch.device(cuda)) == rows["ctas_per_sm"] * sms
+    with pytest.raises(ValueError):
+        sp.seed_pack_occupancy("tiles")

@@ -11,6 +11,8 @@ restatements of scripts/kbench.py's bodies, on the CPU.
   (a cumulative count of the predicate bits).
 - The wrappers on a CPU tensor run these plain versions, check their
   inputs, and the library calls equal the chains.
+- chip_smoke.py's operations bound: the least SM clocks of a mix of
+  instructions by pipe, and the window count it gives B6 at (q)'s shape.
 
 scripts/kbench.py is not imported: it points JAX's persistent cache into
 the repository when it is.
@@ -131,7 +133,8 @@ def test_kernel_ab_needs_the_card(monkeypatch, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("case", ["B7 reads", "B1 grange", "B3 grange",
-                                  "B8 reads", "kbench identity"])
+                                  "B8 reads", "kbench identity", "B6 reads",
+                                  "B6 gtdb", "B9 reads"])
 def test_kernel_ab_loads_a_tree_apart(case):
     """kernel_ab imports another tree (here this one) as a package of its
     own, with its own kernel build and launch counts, and that tree's
@@ -162,6 +165,10 @@ def test_kernel_ab_loads_a_tree_apart(case):
                 "B8 reads": lambda: kernel_ab._pad_stream(
                     rng, 70_000, np.int64, 0.1, 16384, 2048),
                 "kbench identity": lambda: kernel_ab._words(rng, 256),
+                "B6 reads": lambda: kernel_ab._codes(rng, 256, 256, 256),
+                "B6 gtdb": lambda: kernel_ab._codes(rng, 256, 256, 150),
+                "B9 reads": lambda: kernel_ab._codes(rng, 512, 256, 256,
+                                                     True),
                 }[case]()
         assert kernel_ab._equal(getattr(old, wrapper)(**args),
                                 getattr(new, wrapper)(**args))
@@ -169,3 +176,24 @@ def test_kernel_ab_loads_a_tree_apart(case):
         for name in [m for m in sys.modules if m == kernel_ab._OLD
                      or m.startswith(kernel_ab._OLD + ".")]:
             del sys.modules[name]
+
+
+@pytest.mark.parametrize("counts, clocks", [
+    (dict(alu=64), 1.0),                      # the ALU pipe alone
+    (dict(alu=64, fma=64), 1.0),              # IMAD beside it, FMA pipe
+    (dict(alu=64, fma=64, either=64), 1.5),   # 128 lanes a clock of issue
+    (dict(alu=16, quarter=16), 1.0),          # POPC and BREV, 16 a clock
+])
+def test_chip_smoke_sm_clocks(counts, clocks):
+    import chip_smoke
+    assert chip_smoke._sm_clocks(**counts) == clocks
+
+
+def test_chip_smoke_window_bound():
+    """A window costs its 29 ALU-pipe instructions; [65,536, 256] reads of
+    length 256 at k = 31 (226 windows each) need 0.0257 ms at least."""
+    import chip_smoke
+    assert chip_smoke.WINDOW_CLOCKS == 29 / 64
+    ms = (65536 * 226 * chip_smoke.WINDOW_CLOCKS
+          / chip_smoke.H100_SM_CLOCKS_PER_S * 1e3)
+    assert ms == pytest.approx(0.02568, rel=1e-3)

@@ -131,6 +131,27 @@ def test_wrappers_reject_what_pallas_rejects():
         sp.seed_compact(b[:256], n[:256], c=20, k=32)
 
 
+@pytest.mark.parametrize("n,resident,grid", [
+    (65536, 660, 660),        # (q)'s batch on 132 SMs at 5 blocks a SM
+    (1, 528, 1), (7, 528, 1), (9, 528, 2), (256, 528, 32), (8, 3, 1),
+    (0, 528, 0)])
+def test_seed_pack_row_grid(n, resident, grid):
+    """csrc/seed_pack.cu's row-kernel grid: a warp a read, 8 a block, at
+    most the resident blocks (which then stride over the reads)."""
+    assert sp.row_grid(n, resident) == grid
+    assert grid * sp.ROW_WARPS >= min(n, resident * sp.ROW_WARPS)
+
+
+@pytest.mark.parametrize("n,blocks", [
+    (65536, 512),             # (s)'s batch
+    (4096, 32), (512, 4), (100, 1), (8, 1), (0, 0)])
+def test_seed_pack_col_blocks(n, blocks):
+    """csrc/seed_pack.cu's column-kernel grid: a block a tile of 128 read
+    columns, the last tile partial."""
+    assert sp.col_blocks(n) == blocks
+    assert blocks * sp.COL_TILE >= n > (blocks - 1) * sp.COL_TILE or n == 0
+
+
 # ---- _sketch_compact / sketch_batch ----------------------------------------
 
 def test_sketch_batch_kernel_branch_matches_pallas():
