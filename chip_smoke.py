@@ -129,12 +129,43 @@ and drives the port's main path once, at database scale:
      layout equals the built one field by field, and the stage split shows
      the build, save and load seconds. Each phase prints its seconds.
 
+  8. The serving surface and c = 1, after the main path's engines are
+     freed, each phase timed: (w) ``runner.serve`` in-process on the main
+     path's db.syldb, cold (its own load, index build and upload, printed),
+     answering a request stream: sample.sylsp, reads.fastq.gz (raw,
+     streamed to the card: B7, B8), deep.sylsp, reads_host.sylsp, a
+     missing path, a three-token line and sample.sylsp again. Every good
+     request's rows equal its sample's rows in (g)'s TSV byte for byte,
+     the repeat's the first's; B1, the compare (B2, or B4 on deep.sylsp's
+     dense slices) and B3 launch on each good request (counts set to 0
+     before each line); torch.cuda.memory_allocated() after each request,
+     and after the repeat at most the first's plus the device bytes the
+     engine's per-sample caches hold; each request's wall time and stage
+     split; the repeat runs inside a torch.profiler window, whose kernels
+     and copies give the device's busy and idle share of its wall time.
+     (x) On (j)'s merge database: ``api.Profiler(db)`` on the card,
+     ``.profile(s)`` twice and ``.query(s)`` give (j)'s and (k)'s .syldb
+     query rows in every column a ProfileRow holds, from one engine; two
+     ``contain`` calls under SYLPH_TPU_CACHE_INDEX=1 construct one
+     DeviceContainment; ``profile --profile-trace DIR`` writes a Chrome
+     trace holding the merge join's kernels. (y) c = 1: the 72 smallest of
+     (i)'s assemblies sketched with ``sketch -c 1 -g`` (about 9M k-mers,
+     half of them 2^63 or more; 64 genomes or more, so the grange regime's
+     device prefilter sweeps the chunks) and a sample planting 8 of them at
+     c = 1, profiled in the merge,
+     bucket and grange regimes (BUCKET_MIN or GRANGE_MIN lowered for the
+     call): the three TSVs equal and list exactly the planted genomes; the
+     grange histograms equal the oracle; B1 on the grange chunk slice,
+     sorted in uint64 order with keys of 2^63 and up, equals its plain
+     version.
+
 Any failed check raises and the script exits non-zero. The last lines are
 the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import gc
 import json
 import logging
 import os
@@ -496,19 +527,23 @@ def _main_path(db, reads, sketches, work):
 
 def _oracle_hist(genomes, sk, sc, device, H=64):
     """[G, H] exact histograms by searchsorted of every index k-mer into
-    the sorted sample (tests/test_grange.py's oracle, on the card).
-    ``genomes`` holds GenomeSketches or plain k-mer arrays."""
+    the sorted sample (tests/test_grange.py's oracle, on the card), both
+    sides in uint64 order (as int64 bits xor 2^63: at c = 1 a hash can be
+    2^63 or more). ``genomes`` holds GenomeSketches or plain k-mer
+    arrays."""
     import torch
     G = len(genomes)
+    flip = np.uint64(1 << 63)
     kmers = [getattr(g, "genome_kmers", g) for g in genomes]
-    skd = torch.from_numpy(sk.view(np.int64)).to(device)
+    skd = torch.from_numpy((sk ^ flip).view(np.int64)).to(device)
     scd = torch.from_numpy(sc.astype(np.int64)).to(device)
     n = skd.numel()
     hist = torch.zeros(G * H, dtype=torch.int64, device=device)
     step = 8192
     for g0 in range(0, G, step):
         blk = kmers[g0:g0 + step]
-        k = torch.from_numpy(np.concatenate(blk).view(np.int64)).to(device)
+        k = torch.from_numpy((np.concatenate(blk) ^ flip).view(
+            np.int64)).to(device)
         sizes = torch.tensor([a.size for a in blk], device=device)
         gid = torch.repeat_interleave(
             torch.arange(g0, g0 + len(blk), device=device), sizes)
@@ -964,7 +999,7 @@ def _merge_phase(a, work, db):
               f"(B7 {qlaunch['B7_seed']} launches)")
     print(f"check (k): query of {len(sel)} fasta genomes == the .syldb "
           f"query's rows for them ({len(rb)} rows; {qwall:.3f} s)")
-    return genomes, (spath, planted, picks)
+    return genomes, (spath, planted, picks), (tsv, qa)
 
 
 def _merge_cohort_phase(a, work, db, genomes, small):
@@ -2268,6 +2303,486 @@ def _cache_phase(work, bucket_paths):
           "built one field by field")
 
 
+# ---- (w)-(y): serving, the library API and the trace, c = 1 ---------------
+
+# (y): the smallest 72 of (i)'s assemblies at c=1, enough genomes (>= 64)
+# for the device prefilter, so the grange regime sweeps on the card; about
+# 9M k-mers (a genome sketch keeps k-mers 30 bases apart), under 2^24,
+# half of them >= 2^63; 8 of them planted
+C1_GENOMES = 72
+C1_PLANTED = 8
+C1_MIN_TOP_KEYS = 1_000_000    # (y) needs millions of keys >= 2^63
+
+
+def _tsv_lines(text):
+    """{sample column: [full lines]} of TSV text (a header dropped)."""
+    lines = text.splitlines()
+    if lines and lines[0].startswith("Sample_file"):
+        lines = lines[1:]
+    rows = {}
+    for line in lines:
+        rows.setdefault(line.split("\t", 1)[0], []).append(line)
+    return rows
+
+
+def _device_union_ms(trace_path):
+    """(device busy ms, kernel events) of a torch.profiler Chrome trace:
+    the union of its kernel, memcpy and memset intervals."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    iv = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                for e in events
+                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, None
+    for a, b in iv:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3, sum(1 for e in events if e.get("cat") == "kernel")
+
+
+def _view_bytes(view) -> int:
+    """Device bytes a sample's device view holds."""
+    import torch
+    n = 0
+    for v in vars(view).values():
+        for t in (v if isinstance(v, (list, tuple)) else [v]):
+            if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                n += t.numel() * t.element_size()
+    return n
+
+
+class _Requests:
+    """(w)'s request stream for runner.serve, which answers a line in full
+    (rows written and flushed) before it reads the next. Between two lines
+    it records the answered request: wall seconds, launch counts (set to 0
+    just before the line is handed over), the rows written meanwhile, its
+    stage records and torch.cuda.memory_allocated() after a garbage
+    collection. Line ``profile_at`` is answered inside a torch.profiler
+    window whose Chrome trace goes to ``trace_path``."""
+
+    def __init__(self, lines, out, stages, profile_at, trace_path):
+        self.lines, self.out, self.stages = list(lines), out, stages
+        self.profile_at, self.trace_path = profile_at, trace_path
+        self.done = []
+        self.cold_items = None
+        self._i, self._t0, self._pos, self._st, self._prof = -1, 0.0, 0, 0, \
+            None
+
+    def __iter__(self):
+        return self
+
+    def _close(self):
+        import gc
+
+        import torch
+
+        from sylph_tpu_torch.gpu import _cuda
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - self._t0
+        if self._prof is not None:
+            self._prof.__exit__(None, None, None)
+            self._prof.export_chrome_trace(self.trace_path)
+            self._prof = None
+        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        text = self.out.getvalue()
+        rows, self._pos = text[self._pos:], len(text)
+        gc.collect()
+        split = {}
+        for name, sec in self.stages.items[self._st:]:
+            key = name.split(" (")[0]
+            split[key] = split.get(key, 0.0) + sec
+        self.done.append(dict(line=self.lines[self._i], wall_s=wall,
+                              launches=launches, rows=rows, stages=split,
+                              mem=torch.cuda.memory_allocated()))
+
+    def __next__(self):
+        from sylph_tpu_torch.gpu import _cuda
+        if self._i >= 0:
+            self._close()
+        else:                     # the database is loaded, the header out
+            self.cold_items = list(self.stages.items)
+            self._pos = len(self.out.getvalue())
+        self._i += 1
+        if self._i >= len(self.lines):
+            raise StopIteration
+        if self._i == self.profile_at:
+            from torch.profiler import ProfilerActivity, profile
+            self._prof = profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+            self._prof.__enter__()
+        self._st = len(self.stages.items)
+        _cuda.reset_launches()
+        self._t0 = time.perf_counter()
+        return self.lines[self._i] + "\n"
+
+
+def _serve_phase(work, db, reads, samples, host_path, main_tsv):
+    """(w): ``runner.serve`` in-process on the main path's database, cold:
+    it loads the database and builds the index again. Requests: the three
+    sketches and the raw reads, a missing path, a three-token line and
+    sample.sylsp again (warm; answered inside a torch.profiler window).
+    Every good request's rows equal its sample's rows in (g)'s TSV byte for
+    byte, the repeat's the first's; B1, B3 and the compare (B2, or B4 on
+    deep.sylsp's dense slices, as on the main path) launch on each good
+    request, B7 and B8 on the raw one; device memory after the repeat is
+    at most the first good request's plus the device bytes the engine's
+    per-sample caches hold."""
+    import io
+
+    import torch
+
+    from sylph_tpu_torch.engine import runner
+
+    sample, deep = samples["sample"][0], samples["deep"][0]
+    lines = [sample, reads, deep, host_path,
+             os.path.join(work, "missing.sylsp"), f"{sample} {deep} x",
+             sample]
+    good = {0, 1, 2, 3, 6}
+    out = io.StringIO()
+    stages = _Stages()
+    logger = logging.getLogger("sylph")
+    level = logger.level
+    logger.setLevel(logging.DEBUG)
+    logger.addHandler(stages)
+    engines = []
+    make = runner._device_engine_for
+    runner._device_engine_for = lambda *a, **kw: engines.append(
+        make(*a, **kw)) or engines[-1]
+    trace = os.path.join(work, "serve_warm.json")
+    reqs = _Requests(lines, out, stages, 6, trace)
+    t0 = time.perf_counter()
+    try:
+        runner.serve(runner.ContainOptions(files=[db], device="cuda"),
+                     pseudotax=True, out=out, in_stream=reqs)
+    finally:
+        runner._device_engine_for = make
+        logger.removeHandler(stages)
+        logger.setLevel(level)
+    total = time.perf_counter() - t0
+    (dc,) = engines
+    cold = {}
+    for name, sec in reqs.cold_items:
+        key = name.split(" (")[0]
+        cold[key] = cold.get(key, 0.0) + sec
+    print("serve cold start: " + json.dumps(dict(
+        load_s=cold.get("load database"),
+        index_build_s=cold.get("grange index build"),
+        upload_s=cold.get("grange index upload"))))
+    with open(main_tsv) as f:
+        want = _tsv_lines(f.read())
+    done = reqs.done
+    if len(done) != len(lines):
+        _fail(f"(w) serve answered {len(done)} of {len(lines)} requests")
+    for i, d in enumerate(done):
+        print(f"serve request {i} ({os.path.basename(d['line'])}): "
+              + json.dumps(dict(wall_s=d["wall_s"], stages=d["stages"],
+                                launches=d["launches"],
+                                memory_allocated=d["mem"])))
+        got = _tsv_lines(d["rows"])
+        if i not in good:
+            if got:
+                _fail(f"(w) bad request {d['line']!r} wrote rows")
+            continue
+        if len(got) != 1:
+            _fail(f"(w) request {d['line']} wrote rows of {len(got)} "
+                  "samples")
+        (name, mine), = got.items()
+        if mine != want.get(name):
+            _fail(f"(w) {d['line']}: {len(mine)} rows differ from (g)'s "
+                  f"{len(want.get(name, []))} rows of {name}")
+        la = d["launches"]
+        if not (la.get("B1_fill") and la.get("B3_repack")
+                and (la.get("B2_join_codes_compact")
+                     or la.get("B4_join_codes"))):
+            _fail(f"(w) {d['line']}: B1, B2/B4 and B3 not all launched "
+                  f"({la})")
+        if d["line"] == reads and not (la.get("B7_seed")
+                                       and la.get("B8_repack2")):
+            _fail(f"(w) the raw request launched no B7 or B8 ({la})")
+    if done[6]["rows"] != done[0]["rows"]:
+        _fail("(w) the warm repeat's rows differ from the first serve's")
+    print("check (w): every request's rows == (g)'s rows of its sample, "
+          "the repeat's == the first's; B1, the compare and B3 launched on "
+          "each good request, B7 and B8 on the raw one; both bad lines "
+          "skipped")
+    cached = [ref for cache in (dc._cache, dc._hists_cache)
+              for ref, _ in cache.values()]
+    cache_bytes = sum(_view_bytes(s._device_view) for s in cached
+                      if getattr(s, "_device_view", None) is not None)
+    growth = done[6]["mem"] - done[0]["mem"]
+    case = ("the caches hold host arrays only" if not cache_bytes else
+            f"the caches hold {cache_bytes} device bytes of sample views")
+    print("serve device memory: " + json.dumps(dict(
+        after_first=done[0]["mem"], after_repeat=done[6]["mem"],
+        growth=growth, cache_device_bytes=cache_bytes,
+        cached_samples=len(cached), case=case)))
+    if growth > cache_bytes:
+        _fail(f"(w) device memory grew {growth} B between the first request "
+              f"and the repeat, above the caches' {cache_bytes} B")
+    busy_ms, n_kernels = _device_union_ms(trace)
+    wall_ms = done[6]["wall_s"] * 1e3
+    print("serve warm request under torch.profiler (sample.sylsp): "
+          + json.dumps(dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                            busy_share=busy_ms / wall_ms,
+                            idle_share=1.0 - busy_ms / wall_ms,
+                            kernel_events=n_kernels)))
+    if not n_kernels:
+        _fail("(w) the warm request's trace shows no kernel")
+    print(f"check (w): device memory grew {growth} B (bound {cache_bytes} "
+          f"B: {case}); serve total {total:.3f} s")
+    del dc, engines
+    torch.cuda.synchronize()
+
+
+def _row_columns(r, pseudotax: bool):
+    """An api.ProfileRow's TSV columns as engine/output.py formats them;
+    None where the row has no field (Eff_lambda)."""
+    def ci(v, scale):
+        return ("NA-NA" if v[0] is None or v[1] is None
+                else f"{v[0] * scale:.2f}-{v[1] * scale:.2f}")
+    head = [r.sample, r.genome]
+    if pseudotax:
+        head += [f"{r.rel_abundance:.4f}", f"{r.seq_abundance:.4f}"]
+    tail = [f"{r.median_cov:.0f}", f"{r.mean_cov_geq1:.3f}",
+            f"{r.containment[0]}/{r.containment[1]}",
+            f"{r.naive_ani:.2f}"]
+    if pseudotax:
+        tail.append(str(r.kmers_reassigned))
+    return head + [f"{min(r.adjusted_ani, 100.0):.2f}", f"{r.eff_cov:.3f}",
+                   ci(r.ani_ci, 100.0), None, ci(r.lambda_ci, 1.0)] + tail \
+        + [r.contig]
+
+
+def _same_rows(tag, rows, lines, pseudotax):
+    got = [_row_columns(r, pseudotax) for r in rows]
+    want = [ln.split("\t") for ln in lines]
+    if len(got) != len(want) or any(
+            len(g) != len(w) or any(a is not None and a != b
+                                    for a, b in zip(g, w))
+            for g, w in zip(got, want)):
+        _fail(f"(x) {tag}: {len(got)} api rows differ from the TSV's "
+              f"{len(want)}")
+
+
+def _api_phase(work, small_db, small, merge_tsvs):
+    """(x) on the merge database of (j): ``api.Profiler(db)`` on the card,
+    ``.profile(s)`` twice and ``.query(s)``, give (j)'s and (k)'s .syldb
+    query rows in every column a ProfileRow holds; two ``contain`` calls
+    under SYLPH_TPU_CACHE_INDEX=1 construct one DeviceContainment and give
+    the same TSVs; ``profile --profile-trace DIR`` writes a trace holding
+    the merge join's device work (its searchsorted and sort kernels)."""
+    import sylph_tpu_torch.api as sylph
+    from sylph_tpu_torch.engine import device_exec, runner
+
+    spath = small[0]
+    tsv_j, tsv_q = merge_tsvs
+    texts = {}
+    for tag, path in (("profile", tsv_j), ("query", tsv_q)):
+        with open(path) as f:
+            texts[tag] = f.read()
+    db = sylph.load_db(small_db)
+    smp = sylph.load_sample(spath)
+    want_p = _tsv_lines(texts["profile"])[smp.file_name]
+    want_q = _tsv_lines(texts["query"])[smp.file_name]
+    built = [0]
+    real_init = device_exec.DeviceContainment.__init__
+
+    def init(self, *a, **kw):
+        built[0] += 1
+        real_init(self, *a, **kw)
+
+    device_exec.DeviceContainment.__init__ = init
+    try:
+        t0 = time.perf_counter()
+        prof = sylph.Profiler(db)
+        t_build = time.perf_counter() - t0
+        if prof.device.type != "cuda":
+            _fail(f"(x) Profiler(db) runs on {prof.device}")
+        times = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            rows = prof.profile(smp)
+            times.append(time.perf_counter() - t0)
+            _same_rows(f"Profiler.profile, call {i + 1}", rows, want_p, True)
+        t0 = time.perf_counter()
+        _same_rows("Profiler.query", prof.query(smp), want_q, False)
+        times.append(time.perf_counter() - t0)
+        if built[0] != 1:
+            _fail(f"(x) Profiler built {built[0]} engines")
+        del prof
+        os.environ["SYLPH_TPU_CACHE_INDEX"] = "1"
+        built[0] = 0
+        walls = []
+        for mode in ("profile", "query"):
+            out = os.path.join(work, f"cached_{mode}.tsv")
+            _, wall, _, _ = _drive([mode, small_db, spath, "-o", out])
+            walls.append(wall)
+            with open(out) as f:
+                if f.read() != texts[mode]:
+                    _fail(f"(x) the cached-index {mode} TSV differs")
+        if built[0] != 1:
+            _fail(f"(x) two contain calls under SYLPH_TPU_CACHE_INDEX=1 "
+                  f"constructed {built[0]} engines")
+    finally:
+        device_exec.DeviceContainment.__init__ = real_init
+        os.environ.pop("SYLPH_TPU_CACHE_INDEX", None)
+        runner._ENGINE_CACHE.clear()
+        runner._SKETCH_CACHE.clear()
+    print("check (x): Profiler on the card: profile twice and query == "
+          "(j)'s and (k)'s rows, one engine; two contain calls under "
+          "SYLPH_TPU_CACHE_INDEX=1 built one engine, TSVs unchanged")
+    tdir = os.path.join(work, "trace")
+    out = os.path.join(work, "traced.tsv")
+    launches, wall, _, _ = _drive(["profile", small_db, spath,
+                                   "--profile-trace", tdir, "-o", out])
+    with open(out) as f:
+        if f.read() != texts["profile"]:
+            _fail("(x) the traced profile's TSV differs from (j)'s")
+    files = os.listdir(tdir)
+    if len(files) != 1:
+        _fail(f"(x) --profile-trace wrote {files}")
+    path = os.path.join(tdir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    join = [n for n in names if "searchsorted" in n or "sort" in n.lower()]
+    if not join:
+        _fail(f"(x) the trace holds {len(names)} kernels, none of the "
+              "merge join's (searchsorted, sort)")
+    busy_ms, _ = _device_union_ms(path)
+    print("api and trace: " + json.dumps(dict(
+        profiler_build_s=t_build, profiler_calls_s=times,
+        cached_contain_walls_s=walls, traced_profile_wall_s=wall,
+        trace_bytes=os.path.getsize(path), trace_kernels=len(names),
+        merge_join_kernels=len(join), trace_device_busy_ms=busy_ms)))
+    print("check (x): --profile-trace wrote a trace holding the merge "
+          "join's kernels; its TSV == (j)'s")
+
+
+def _c1_phase(a, work, asm_paths):
+    """(y): c = 1 on the card. 72 of (i)'s assemblies sketched with
+    ``sketch -c 1 -g`` (millions of keys >= 2^63, under 2^24 k-mers; 64
+    genomes or more, so the grange regime's device prefilter sweeps), a
+    planted c = 1 sample profiled in the merge regime, the bucket regime
+    (BUCKET_MIN lowered) and the grange regime (GRANGE_MIN lowered, as (v)
+    forces it): the three TSVs equal and list exactly the planted genomes,
+    the grange histograms equal the oracle, and B1 on the grange chunk
+    slice holding keys >= 2^63 equals its plain version."""
+    import torch
+
+    from sylph_tpu_torch.core.types import SequencesSketch
+    from sylph_tpu_torch.engine.device_exec import DeviceContainment
+    from sylph_tpu_torch.gpu import bucket_fill as bf
+    from sylph_tpu_torch.gpu import bucket_join as bj
+    from sylph_tpu_torch.gpu import grange as gr
+    from sylph_tpu_torch.io import sylformat
+
+    paths = [p for _, p in sorted((os.path.getsize(p), p)
+                                  for p in asm_paths)[:C1_GENOMES]]
+    size = sum(os.path.getsize(p) for p in paths)
+    base = os.path.join(work, "c1")
+    launches, wall, _, _ = _drive(["sketch", "-c", "1", "-g", *paths, "-o",
+                                   base, "-t", str(THREADS)])
+    if launches["B7_seed"] <= 0:
+        _fail("(y) sketch -c 1 launched no B7")
+    db = base + ".syldb"
+    genomes = sylformat.read_syldb(db)
+    keys = np.concatenate([g.genome_kmers for g in genomes])
+    top = np.uint64(1 << 63)
+    n_top = int((keys >= top).sum())
+    if n_top < C1_MIN_TOP_KEYS or keys.size >= 1 << 24:
+        _fail(f"(y) {keys.size} k-mers, {n_top} of them >= 2^63")
+    rng = np.random.default_rng(a.seed + 6)
+    picks = rng.choice(len(genomes), size=C1_PLANTED, replace=False)
+    parts = [genomes[g].genome_kmers for g in np.sort(picks)]
+    counts = [1 + rng.poisson(1 + j % 5, size=p.size)
+              for j, p in enumerate(parts)]
+    absent = np.setdiff1d(rng.integers(0, np.iinfo(np.uint64).max,
+                                       size=2_000_000, dtype=np.uint64), keys)
+    parts.append(absent)
+    counts.append(rng.integers(1, 4, size=absent.size))
+    sk = SequencesSketch(np.concatenate(parts),
+                         np.concatenate(counts).astype(np.uint32), 1, K,
+                         "c1.fq", None, False, 150.0)
+    spath = os.path.join(work, "c1.sylsp")
+    sylformat.write_sylsp(spath, sk)
+    smp = sylformat.read_sylsp(spath)
+    planted = {genomes[g].file_name for g in picks}
+    old = (DeviceContainment.BUCKET_MIN, DeviceContainment.GRANGE_MIN)
+    tsvs, splits = {}, {}
+    try:
+        for regime in ("merge", "bucket", "grange"):
+            DeviceContainment.BUCKET_MIN = 0 if regime == "bucket" \
+                else old[0]
+            DeviceContainment.GRANGE_MIN = 0 if regime == "grange" \
+                else old[1]
+            out = os.path.join(work, f"c1_{regime}.tsv")
+            la, w, _, dc = _drive(["profile", db, spath, "-c", "1", "-o",
+                                   out])
+            ran = ("grange" if dc._grange is not None else
+                   "bucket" if dc._use_buckets else "merge")
+            if ran != regime:
+                _fail(f"(y) the {regime} profile ran the {ran} regime")
+            if regime != "merge" and la["B1_fill"] <= 0:
+                _fail(f"(y) the {regime} profile launched no B1")
+            if regime == "grange" and dc._grange.counters["hists_sweeps"] < 1:
+                _fail(f"(y) the grange profile swept no chunk: "
+                      f"{dc._grange.counters}")
+            with open(out) as f:
+                tsvs[regime] = f.read()
+            splits[regime] = dict(wall_s=w, launches={
+                k: v for k, v in la.items() if v})
+            if regime == "grange":
+                gdc = dc
+            del dc
+    finally:
+        DeviceContainment.BUCKET_MIN, DeviceContainment.GRANGE_MIN = old
+    if len(set(tsvs.values())) != 1:
+        _fail("(y) the c = 1 TSVs differ between regimes: " + json.dumps(
+            {k: len(v) for k, v in tsvs.items()}))
+    listed = {r.split("\t")[0] for r in _tsv_rows(
+        os.path.join(work, "c1_merge.tsv")).get("c1.fq", [])}
+    if listed != planted:
+        _fail(f"(y) the c = 1 TSV lists {len(listed)} genomes, "
+              f"{len(listed & planted)} of {len(planted)} planted")
+    s_k, s_c = smp.sorted_view()
+    got = gdc.hists(smp)
+    if not np.array_equal(got, _oracle_hist(genomes, s_k, s_c, gdc.device)):
+        _fail("(y) the c = 1 grange histogram differs from the oracle")
+    eng = gdc._grange
+    g = eng.gidx
+    slices, P, CS, _ = eng.plan(np.ascontiguousarray(s_k, np.uint64))
+    ci = max(range(len(slices)), key=lambda i: int(g.edges_u64[i, 1]))
+    skey, sw = eng.upload_sample(s_k, s_c)
+    s0, e0 = slices[ci]
+    ck, cw = gr._pad_slice(skey, sw.to(torch.int32), s0, e0, P)
+    n_top_slice = int((ck.cpu().numpy().view(np.uint64)[:e0 - s0]
+                       >= top).sum())
+    if not n_top_slice:
+        _fail("(y) the chunk slice holds no key >= 2^63")
+    kw = dict(width=g.width, B=g.B, CS=CS, nt=g.nt, subwidth=g.subwidth)
+    err = _same("B1 c=1 slice",
+                bf.bucket_fill(ck, cw, int(g.bases[ci]), **kw),
+                [t.to(ck.device) for t in bj._sample_to_buckets(
+                    ck.cpu(), cw.cpu(), base=int(g.bases[ci]), **kw)])
+    print("c = 1: " + json.dumps(dict(
+        assemblies=len(paths), fasta_bytes=size, index_kmers=int(keys.size),
+        keys_ge_2_63=n_top, sample_kmers=int(smp.kmers.size),
+        sketch_s=wall, grange_chunks=len(g.chunk_keys),
+        b1_slice=dict(chunk=ci, entries=e0 - s0, keys_ge_2_63=n_top_slice,
+                      P=P, CS=CS, nt=g.nt, max_abs_err=err),
+        **splits)))
+    print(f"check (y): merge, bucket and grange TSVs equal at c = 1 "
+          f"({len(planted)} planted genomes listed), grange histograms == "
+          "oracle, B1 on a uint64-ordered slice == plain")
+    del gdc, eng
+    torch.cuda.synchronize()
+
+
 def main(argv=None) -> int:
     a = _parse(argv)
     import torch
@@ -2324,7 +2839,7 @@ def main(argv=None) -> int:
         r_batch = _gtdb_pipeline_phase(dc, read_codes)
         del read_codes
         small_db, asm_paths, sk_launches = _sketch_phase(a, work)
-        genomes, small = _merge_phase(a, work, small_db)
+        genomes, small, merge_tsvs = _merge_phase(a, work, small_db)
         _merge_cohort_phase(a, work, small_db, genomes, small)
         bdc, bsmp, b_launches, bucket_paths = _bucket_phase(a, work)
         rows, record, shared = _kernels(dc, loaded, launches, reads)
@@ -2340,6 +2855,20 @@ def main(argv=None) -> int:
                 ("v", lambda: _cache_phase(work, bucket_paths))):
             t0 = time.perf_counter()
             phase()
+            print(f"phase ({tag}): {time.perf_counter() - t0:.3f} s")
+        # the main path's engines are done with: (w) builds its own
+        del dc, bdc, card, shared, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        for tag, phase in (
+                ("w", lambda: _serve_phase(
+                    work, db, reads, samples, host_path, tsv)),
+                ("x", lambda: _api_phase(work, small_db, small,
+                                         merge_tsvs)),
+                ("y", lambda: _c1_phase(a, work, asm_paths))):
+            t0 = time.perf_counter()
+            phase()
+            gc.collect()
             print(f"phase ({tag}): {time.perf_counter() - t0:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)

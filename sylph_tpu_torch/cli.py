@@ -1,14 +1,17 @@
 """Command-line interface: ``python -m sylph_tpu_torch {sketch, profile,
 query, inspect}``.
 
-The flags are sylph_tpu's (sylph src/cmdline.rs), less ``--tpu``,
-``--serve``, ``--profile-trace`` and the multi-host flags, plus ``--device
-{cuda,cpu}`` (default cuda: seeding and containment run on the GPU unless
-the CPU is asked for). ``sketch`` takes genomes (``-g``, fasta files,
-``--gl``) into one ``.syldb`` and reads (``-r``, ``--rl``, ``-1/-2``,
-``--l1/--l2``, fastq files) into ``.sylsp`` samples; ``profile``/``query``
-take ``.syldb`` databases or genome fasta files, and ``.sylsp`` samples or
-raw reads; ``inspect`` prints sketch metadata as YAML (host only).
+The flags are sylph_tpu's (sylph src/cmdline.rs), less ``--tpu`` and the
+multi-host flags (``--coordinator``, ``--num-processes``, ``--process-id``),
+plus ``--device {cuda,cpu}`` (default cuda: seeding and containment run on
+the GPU unless the CPU is asked for). ``sketch`` takes genomes (``-g``,
+fasta files, ``--gl``) into one ``.syldb`` and reads (``-r``, ``--rl``,
+``-1/-2``, ``--l1/--l2``, fastq files) into ``.sylsp`` samples;
+``profile``/``query`` take ``.syldb`` databases or genome fasta files, and
+``.sylsp`` samples or raw reads, and with ``--serve`` keep the database
+resident and answer sample paths read from stdin; ``--profile-trace DIR``
+writes a torch.profiler trace; ``inspect`` prints sketch metadata as YAML
+(host only).
 """
 
 import argparse
@@ -17,7 +20,7 @@ import os
 import sys
 
 from .engine.inspect_cmd import InspectOptions, inspect
-from .engine.runner import ContainOptions, contain
+from .engine.runner import ContainOptions, contain, serve
 from .engine.sketch_cmd import SketchOptions, sketch
 
 
@@ -123,6 +126,17 @@ def _add_contain(sub, name, helptext):
     p.add_argument("--no-adjust", dest="no_adj", action="store_true")
     p.add_argument("--mean-coverage", dest="mean_coverage",
                    action="store_true")
+    p.add_argument("--profile-trace", dest="profile_trace", default=None,
+                   metavar="DIR",
+                   help="write a torch.profiler trace of the samples' "
+                   "processing to DIR (a Chrome trace file); a trace that "
+                   "cannot be written fails the run")
+    p.add_argument("--serve", action="store_true",
+                   help="serving mode: load the database and build the "
+                   "device index once, then read sample paths from stdin "
+                   "(one per line, two whitespace-separated paths for a "
+                   "read pair), writing each sample's TSV rows at once; "
+                   "EOF ends the loop")
     _device_flag(p, "seeding and containment")
     return p
 
@@ -173,7 +187,8 @@ def _contain_options(a) -> ContainOptions:
         out_file_name=a.out_file_name,
         log_reassignments=a.log_reassignments, pseudotax=a.pseudotax,
         estimator=estimator, no_ci=a.no_ci, no_adj=a.no_adj,
-        mean_coverage=a.mean_coverage, device=a.device)
+        mean_coverage=a.mean_coverage, device=a.device,
+        profile_trace=a.profile_trace)
 
 
 def _sketch_options(a) -> SketchOptions:
@@ -250,8 +265,8 @@ def main(argv=None) -> int:
             inspect(InspectOptions(files=args.files,
                                    out_file_name=args.out_file_name))
         else:
-            contain(_contain_options(args),
-                    pseudotax=(args.mode == "profile"))
+            run = serve if args.serve else contain
+            run(_contain_options(args), pseudotax=(args.mode == "profile"))
     except SystemExit as e:
         return int(e.code or 0)
     except BrokenPipeError:

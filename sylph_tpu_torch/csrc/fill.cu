@@ -84,9 +84,9 @@ __device__ __forceinline__ long long cell_of(const Cells& g, long long hi) {
 }
 
 // The cell of high word hi among a block's ncell cells from c0, or -1 if it
-// lies outside them. On a sorted slice every entry of a block's range is
-// one of its cells; a slice out of order (keys of 2^63 and up, which an
-// int64 sort puts first and no sketch at c >= 2 holds) then gives wrong
+// lies outside them. On a slice sorted in uint64 order (as the engine
+// sorts it; at c = 1 that puts keys of 2^63 and up last) every entry of a
+// block's range is one of its cells; a slice out of that order gives wrong
 // cells, but never a write past the block's shared memory.
 __device__ __forceinline__ int block_cell(const Cells& g, long long hi,
                                           long long c0, int ncell) {

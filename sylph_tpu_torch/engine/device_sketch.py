@@ -221,7 +221,8 @@ def genome_survivor_positions(px: ParsedFastx, c: int, k: int,
         row, col = (hrows != -1).nonzero(as_tuple=True)
         got = torch.stack([row, lanes[row, col], hrows[row, col]]).cpu()
         row, lane, h = got.numpy()
-        at_cap += int((np.bincount(row, minlength=bc.size) >= cap).sum())
+        if cap < W:           # at cap == W (c = 1) no survivor can be lost
+            at_cap += int((np.bincount(row, minlength=bc.size) >= cap).sum())
         out_c.append(bc[row])
         # end position of the window, like fmh_seeds_positions
         out_p.append(bo[row] + lane + (k - 1))
@@ -346,8 +347,7 @@ class DeviceSampleView:
         """(keys int64 [n], weights uint8 [n]) on the device: the
         buffers concatenated and cut to the n live keys (the counterpart of
         the JAX padded_to_pow2, which pads instead to keep compile shapes
-        stable; here the pad -1 would sort first, so it never enters the
-        sort)."""
+        stable; here the pads never enter the sort)."""
         keys = torch.cat(self.bufs)[:self.n]
         if self.w_spec[0] == "sparse":
             _, idx, vals = self.w_spec

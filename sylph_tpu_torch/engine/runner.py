@@ -12,6 +12,13 @@ grange regime, their k-mers stream to it. Samples run in cohorts of
 samples first, then sketches, each cohort loading on a thread pool while the
 one before it is processed, its device work batched by
 ``DeviceContainment.prefetch``; results come out in input order.
+
+``serve`` (``--serve``) loads the database and builds the device engine
+once, then answers one sample request a line of a stream. Under
+``SYLPH_TPU_CACHE_INDEX=1`` the parsed database and its device engine stay
+resident across ``contain`` calls of one process (a library caller's
+repeated calls), keyed on the ``.syldb`` files' paths, times and sizes.
+``--profile-trace DIR`` writes a torch.profiler trace of the sample loop.
 """
 
 import logging
@@ -34,7 +41,7 @@ from ..gpu.grange import resolve_device
 from ..io import sylformat
 from ..io.fastx import is_fasta, is_fastq
 from ..stats.contain_stats import StatParams, coverage_stats
-from ..utils.timing import stage_timer
+from ..utils.timing import maybe_profile, stage_timer
 from .containment import WinnerTable, genome_covs, genome_covs_batch
 from .output import print_ani_result, print_header
 from .profile import (assign_groups, derep_if_reassign_threshold,
@@ -72,6 +79,7 @@ class ContainOptions:
     no_adj: bool = False
     mean_coverage: bool = False
     device: str = "cuda"       # containment device: "cuda" or "cpu"
+    profile_trace: Optional[str] = None  # torch.profiler trace output dir
 
 
 def _stat_params(opts: ContainOptions, k: int) -> StatParams:
@@ -180,10 +188,37 @@ def _classify_files(opts: ContainOptions):
     return genome_sketch_files, genome_files, read_sketch_files, read_files
 
 
+_SKETCH_CACHE = {}      # db key -> List[GenomeSketch] (opt-in)
+
+
+def _db_key(genome_sketch_files):
+    """The resident caches' key: the sorted (abspath, mtime, size) of the
+    .syldb files, so a rewritten database misses."""
+    return tuple(sorted(
+        (os.path.abspath(p), os.path.getmtime(p), os.path.getsize(p))
+        for p in genome_sketch_files))
+
+
+def _caching(genome_sketch_files, genome_files) -> bool:
+    """SYLPH_TPU_CACHE_INDEX=1 and a database of .syldb files only (fasta
+    inputs are sketched in-call and not fingerprinted: they bypass the
+    caches)."""
+    return (os.environ.get("SYLPH_TPU_CACHE_INDEX") == "1"
+            and bool(genome_sketch_files) and not genome_files)
+
+
 def _get_genome_sketches(opts: ContainOptions, genome_sketch_files,
                          genome_files, device) -> List[GenomeSketch]:
     """src/contain.rs:482-542: .syldb inputs, then fasta inputs sketched
-    with seeding on ``device``."""
+    with seeding on ``device``. Under SYLPH_TPU_CACHE_INDEX=1 the parsed
+    sketch list of one database stays resident (runner.py:191-253 of the
+    JAX package): re-reading a GTDB-scale .syldb costs seconds a call."""
+    serving = _caching(genome_sketch_files, genome_files)
+    if serving:
+        key = _db_key(genome_sketch_files)
+        hit = _SKETCH_CACHE.get(key)
+        if hit is not None:
+            return hit
     max_genome_c = None   # reference's 'lowest_genome_c' actually tracks max
     current_k = None
     sketches: List[GenomeSketch] = []
@@ -223,6 +258,9 @@ def _get_genome_sketches(opts: ContainOptions, genome_sketch_files,
                               opts.pseudotax, device=device)
             if g is not None:
                 sketches.append(g)
+    if serving:
+        _SKETCH_CACHE.clear()          # hold at most one resident database
+        _SKETCH_CACHE[key] = sketches
     return sketches
 
 
@@ -478,31 +516,51 @@ def _cohorts(opts: ContainOptions, items, genome_sketches, device_engine):
                 yield rf, results
 
 
-def _device_engine_for(genome_sketches, device):
-    """The device engine of this database (one per contain() call)."""
+_ENGINE_CACHE = {}      # (db key, device) -> DeviceContainment (opt-in)
+
+
+def _device_engine_for(genome_sketch_files, genome_files, genome_sketches,
+                       device):
+    """The device engine of this database on ``device``: one per call, or
+    under SYLPH_TPU_CACHE_INDEX=1 one resident engine reused by later
+    calls on the same .syldb files and device (runner.py:453-475 of the
+    JAX package), which skip the index build and upload."""
     from .device_exec import DeviceContainment
-    return DeviceContainment(genome_sketches, device=device)
+    if not _caching(genome_sketch_files, genome_files):
+        return DeviceContainment(genome_sketches, device=device)
+    key = (_db_key(genome_sketch_files), str(device))
+    if key not in _ENGINE_CACHE:
+        _ENGINE_CACHE.clear()          # hold at most one resident index
+        _ENGINE_CACHE[key] = DeviceContainment(genome_sketches,
+                                               device=device)
+    return _ENGINE_CACHE[key]
 
 
-def contain(opts: ContainOptions, pseudotax: bool,
-            out: Optional[TextIO] = None):
-    """Entry point for query (pseudotax=False) / profile (pseudotax=True)."""
-    from ..utils.threads import set_thread_budget
-    set_thread_budget(opts.threads)
-    if pseudotax:
-        opts.pseudotax = True
+def _open_out(opts: ContainOptions, out: Optional[TextIO]):
+    """(the TSV stream, whether to close it): ``out``, else -o, else
+    stdout."""
+    if out is not None:
+        return out, False
+    if opts.out_file_name:
+        return open(opts.out_file_name, "w"), True
+    return sys.stdout, False
+
+
+def _load_database(opts: ContainOptions, need_samples: bool):
+    """(classified inputs, device, genome sketches) of a contain or serve
+    call; exits 1 where src/contain.rs does (no database, no samples, an
+    empty database, profiling of a --disable-profiling database)."""
     log.info("Obtaining sketches...")
-    (genome_sketch_files, genome_files, read_sketch_files,
-     read_files) = _classify_files(opts)
+    files = _classify_files(opts)
+    genome_sketch_files, genome_files, read_sketch_files, read_files = files
     if not genome_sketch_files and not genome_files:
         log.error("No genome files found; see sylph query/profile -h for "
                   "help. Exiting")
         raise SystemExit(1)
-    if not read_sketch_files and not read_files:
+    if need_samples and not read_sketch_files and not read_files:
         log.error("No read files found; see sylph query/profile -h for "
                   "help. Exiting")
         raise SystemExit(1)
-
     device = resolve_device(opts.device)
     with stage_timer("load database"):
         genome_sketches = _get_genome_sketches(opts, genome_sketch_files,
@@ -517,28 +575,110 @@ def contain(opts: ContainOptions, pseudotax: bool,
         log.error("Attempting profiling, but *.syldb was sketched with the "
                   "--disable-profiling option. Exiting")
         raise SystemExit(1)
+    return files, device, genome_sketches
 
-    device_engine = _device_engine_for(genome_sketches, device)
+
+def contain(opts: ContainOptions, pseudotax: bool,
+            out: Optional[TextIO] = None):
+    """Entry point for query (pseudotax=False) / profile (pseudotax=True)."""
+    from ..utils.threads import set_thread_budget
+    set_thread_budget(opts.threads)
+    if pseudotax:
+        opts.pseudotax = True
+    ((genome_sketch_files, genome_files, read_sketch_files, read_files),
+     device, genome_sketches) = _load_database(opts, need_samples=True)
+    device_engine = _device_engine_for(genome_sketch_files, genome_files,
+                                       genome_sketches, device)
     log.info("Containment runs on %s.", device_engine.device)
 
-    close_out = False
-    if out is None:
-        if opts.out_file_name:
-            out = open(opts.out_file_name, "w")
-            close_out = True
-        else:
-            out = sys.stdout
+    out, close_out = _open_out(opts, out)
     print_header(opts.pseudotax, out, opts.estimate_unknown)
     samples = ([(rf, False) for rf in read_files]
                + [([f], True) for f in read_sketch_files])
-    for rf, results in _cohorts(opts, samples, genome_sketches,
-                                device_engine):
-        if results is not None:
-            for r in results:
-                print_ani_result(r, opts.pseudotax, out)
-            out.flush()
-        log.info("Finished %ssample %s.", "paired " if len(rf) > 1 else "",
-                 rf[0])
+    with maybe_profile(opts.profile_trace):
+        for rf, results in _cohorts(opts, samples, genome_sketches,
+                                    device_engine):
+            if results is not None:
+                for r in results:
+                    print_ani_result(r, opts.pseudotax, out)
+                out.flush()
+            log.info("Finished %ssample %s.",
+                     "paired " if len(rf) > 1 else "", rf[0])
     log.info("sylph finished.")
+    if close_out:
+        out.close()
+
+
+def serve(opts: ContainOptions, pseudotax: bool,
+          out: Optional[TextIO] = None,
+          in_stream: Optional[TextIO] = None):
+    """Resident-index serving loop (``profile/query --serve``;
+    runner.py:659-788 of the JAX package).
+
+    Loads the database and builds the device engine on ``opts.device``
+    ONCE, then serves the samples given in argv, then one request per line
+    of ``in_stream`` (default stdin): a read-file or .sylsp path, or two
+    whitespace-separated paths for a read pair. A raw-read request on a
+    grange engine streams its k-mers to the device while it is sketched.
+    Each request's TSV rows are written and flushed before the next line is
+    read. A bad line or a failed sample (a bad .sylsp's SystemExit too)
+    logs and continues; EOF ends the loop. There is no fall-back to the
+    host: without a GPU, ``device="cuda"`` raises as in ``contain``."""
+    from ..utils.threads import set_thread_budget
+    set_thread_budget(opts.threads)
+    if pseudotax:
+        opts.pseudotax = True
+    if in_stream is None:
+        in_stream = sys.stdin
+    ((genome_sketch_files, genome_files, read_sketch_files, read_files),
+     device, genome_sketches) = _load_database(opts, need_samples=False)
+    device_engine = _device_engine_for(genome_sketch_files, genome_files,
+                                       genome_sketches, device)
+    log.info("Containment runs on %s.", device_engine.device)
+    out, close_out = _open_out(opts, out)
+    print_header(opts.pseudotax, out, opts.estimate_unknown)
+
+    def one(rfiles: List[str], is_sketch: bool) -> None:
+        with stage_timer(f"load/sketch sample {rfiles[0]}"):
+            sk = _load_sample(opts, rfiles, is_sketch, genome_sketches,
+                              device_engine)
+        if sk is None:
+            return
+        with stage_timer(f"process sample {rfiles[0]}",
+                         items=len(genome_sketches)):
+            results = process_sample(opts, sk, genome_sketches,
+                                     device_engine)
+        for r in results:
+            print_ani_result(r, opts.pseudotax, out)
+        out.flush()
+        log.info("Finished %ssample %s.",
+                 "paired " if len(rfiles) > 1 else "", rfiles[0])
+
+    log.info("Serving: reading sample paths from stdin "
+             "(one per line; two paths = read pair).")
+    with maybe_profile(opts.profile_trace):
+        # samples given up front (argv) serve first, then the requests
+        for rfiles, is_sketch in ([(rf, False) for rf in read_files]
+                                  + [([f], True) for f in read_sketch_files]):
+            one(rfiles, is_sketch)
+        for line in in_stream:
+            parts = line.split()
+            if not parts:
+                continue
+            if len(parts) > 2:
+                log.error("serve: expected 1 or 2 paths per line, got %d "
+                          "(%r); skipping.", len(parts), line.strip())
+                continue
+            is_sketch = (len(parts) == 1 and any(
+                parts[0].endswith(s) for s in SAMPLE_FILE_SUFFIX_VALID))
+            try:
+                one(parts, is_sketch)
+            except SystemExit as e:      # per-sample fatal (bad sketch)
+                log.error("serve: sample %s failed (exit %s); continuing.",
+                          parts[0], e.code)
+            except Exception:
+                log.exception("serve: sample %s failed; continuing.",
+                              parts[0])
+    log.info("sylph serve finished.")
     if close_out:
         out.close()

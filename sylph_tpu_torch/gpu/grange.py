@@ -47,7 +47,7 @@ from .bucket_join import (_cell_ids, block_rows, cell_cs, join_codes,
                           join_codes_compact_batched, join_counts,
                           sample_cs)
 from .containment import _bincount
-from .keys import HIST_H, KEY_PAD, SENT, from_pair_np, key_hi
+from .keys import HIST_H, KEY_PAD, SENT, from_pair_np, key_hi, u64_order
 
 log = logging.getLogger("sylph")
 
@@ -157,18 +157,20 @@ def index_from_numpy(fields: dict) -> GRangeIndex:
 
 
 def _sort_kv(kmers_u64: np.ndarray, gids: np.ndarray, device):
-    """Stable sort of (kmer, gid) by kmer on ``device`` (keys are the
-    non-negative int64 patterns of the hashes, so int64 order is uint64
-    order) -> host (uint64 keys, int32 gids)."""
+    """Stable sort of (kmer, gid) by kmer in uint64 order on ``device``
+    -> host (uint64 keys, int32 gids). The int64 patterns sort on
+    ``u64_order`` (at c = 1 a hash can be 2^63 or more, negative as an
+    int64), flipped in place and back, as the JAX package sorts its uint64
+    keys (sylph_tpu/tpu/grange.py:196-204)."""
     dev = torch.device(device)
     k = torch.from_numpy(np.ascontiguousarray(kmers_u64, np.uint64)
-                         .view(np.int64)).to(dev)
+                         .view(np.int64)).to(dev, copy=True)
     g = torch.from_numpy(np.ascontiguousarray(gids, np.int32)).to(dev)
-    sk, order = torch.sort(k, stable=True)
+    sk, order = torch.sort(u64_order(k, inplace=True), stable=True)
     del k
     sg = g[order]
     del g, order
-    su = sk.cpu().numpy().view(np.uint64)
+    su = u64_order(sk, inplace=True).cpu().numpy().view(np.uint64)
     sg = sg.cpu().numpy()
     del sk
     if dev.type == "cuda":
@@ -509,16 +511,16 @@ def _chunk_hist_lossless(ikey, gid_grid, skey, sw, base: int, *,
 
 
 def fold_stream(keys: torch.Tensor):
-    """(sorted distinct keys int64, uint8 weights) of an occurrence stream
-    of int64 keys (any shape and order, -1 pads anywhere) on its device:
-    the reference's kmer_counts multiplicity map (sylph
-    src/sketch.rs:930-939). Only live keys enter the sort (the -1 pad would
-    sort first, where the JAX SENT sorts last); weights clamp at H-1
-    losslessly, as in ``upload_sample``."""
+    """(distinct keys int64 in uint64 order, uint8 weights) of an
+    occurrence stream of int64 keys (any shape and order, -1 pads
+    anywhere) on its device: the reference's kmer_counts multiplicity map
+    (sylph src/sketch.rs:930-939). The pads are dropped before the sort,
+    which runs on ``u64_order`` as the JAX package sorts its uint64 keys;
+    weights clamp at H-1 losslessly, as in ``upload_sample``."""
     flat = keys.reshape(-1)
-    live = torch.sort(flat[flat != KEY_PAD]).values
+    live = torch.sort(u64_order(flat[flat != KEY_PAD])).values
     skey, cnt = torch.unique_consecutive(live, return_counts=True)
-    return skey, cnt.clamp(max=HIST_H - 1).to(torch.uint8)
+    return u64_order(skey), cnt.clamp(max=HIST_H - 1).to(torch.uint8)
 
 
 def _quantize_p(want: float, t=None) -> int:
@@ -547,7 +549,11 @@ class GRangeEngine:
         n_res = (n_chunks if max_resident_chunks is None
                  else max(0, min(max_resident_chunks, n_chunks)))
         self._dev_chunks = {i: self._upload(i) for i in range(n_res)}
-        self._edges = None
+        # (first, last) hash of every chunk as u64_order keys, resident
+        # with the chunks: searchsorted of a device-sorted sample compares
+        # in that order
+        e = np.ascontiguousarray(gidx.edges_u64, np.uint64).view(np.int64)
+        self._edges = u64_order(torch.from_numpy(e)).to(self.device)
         # sweeps of the index: per-sample (hists), batched (hists_batched)
         # and batched ones whose probe sent them back to per-sample sweeps;
         # for streamed samples, device sorts, masks from the one-fetch
@@ -650,28 +656,22 @@ class GRangeEngine:
 
     def _sorted_device_sample(self, device_view):
         """(keys int64 [n], weights uint8 [n]) of a streamed sample,
-        sorted by key on the device. Only the n live keys enter the sort
-        (the -1 pad would sort first); they are distinct (dedup output), so
-        the order equals the host table's."""
+        sorted on the device in uint64 order (on ``u64_order``). Only the n
+        live keys enter the sort; they are distinct (dedup output), so the
+        order equals the host table's."""
         self.counters["device_view_sorts"] += 1
         keys, w = device_view.live()
-        skey, order = torch.sort(keys, stable=True)
-        return skey, w[order]
-
-    def _edges_dev(self):
-        """(first, last) int64 hash of every chunk, on the device."""
-        if self._edges is None:
-            e = np.ascontiguousarray(self.gidx.edges_u64, np.uint64)
-            self._edges = torch.from_numpy(e.view(np.int64)).to(self.device)
-        return self._edges
+        skey, order = torch.sort(u64_order(keys), stable=True)
+        return u64_order(skey, inplace=True), w[order]
 
     def _device_slices(self, skey: torch.Tensor):
-        """Per-chunk (starts, ends) into a device-sorted sample, computed on
-        the device: searchsorted of the chunk edges, clipped to n by
-        construction (only live keys are sorted)."""
-        e = self._edges_dev()
-        starts = torch.searchsorted(skey, e[:, 0].contiguous(), side="left")
-        ends = torch.searchsorted(skey, e[:, 1].contiguous(), side="right")
+        """Per-chunk (starts, ends) into a sample sorted in uint64 order,
+        computed on the device: searchsorted of the chunk edges in that
+        order, clipped to n by construction (only live keys are sorted)."""
+        e = self._edges
+        sk = u64_order(skey)
+        starts = torch.searchsorted(sk, e[:, 0].contiguous(), side="left")
+        ends = torch.searchsorted(sk, e[:, 1].contiguous(), side="right")
         return starts, ends
 
     def _device_view_slices(self, skey: torch.Tensor):
@@ -684,9 +684,10 @@ class GRangeEngine:
     def hist_device_stream(self, skey: torch.Tensor,
                            w_dev: Optional[torch.Tensor] = None,
                            n_matches: Optional[int] = None):
-        """All-device histogram of a SORTED unique sample (``skey`` int64
-        [n], ``w_dev`` its weights): chunk offsets on the device, per-chunk
-        slices gathered on the device, nothing crosses to the host.
+        """All-device histogram of a sorted unique sample (``skey`` int64
+        [n] in uint64 order, ``w_dev`` its weights): chunk offsets on the
+        device, per-chunk slices gathered on the device, nothing crosses to
+        the host.
 
         With ``w_dev`` None, ``skey`` is an occurrence stream instead (any
         shape and order, repeats encode multiplicity, -1 pads anywhere): it
@@ -816,14 +817,17 @@ class GRangeEngine:
 
     def batched_slices(self, keys: torch.Tensor, n_live: List[int]):
         """[S, n_chunks] (starts, ends) of every chunk in each row of an
-        [S, T] table, searched over the row's live prefix only: the
-        KEY_PAD tail sorts first in int64, so a padded row is not sorted."""
-        e = self._edges_dev()
+        [S, T] table (live prefix in uint64 order, KEY_PAD tail), searched
+        in uint64 order over the row's live prefix. The tail would sort
+        last there too (KEY_PAD is u64::MAX, and no kept hash is), so the
+        prefix only spares the search the pads."""
+        e = self._edges
         lo, hi = e[:, 0].contiguous(), e[:, 1].contiguous()
-        starts = torch.stack([torch.searchsorted(keys[s, :n], lo, side="left")
-                              for s, n in enumerate(n_live)])
-        ends = torch.stack([torch.searchsorted(keys[s, :n], hi, side="right")
-                            for s, n in enumerate(n_live)])
+        rows = [u64_order(keys[s, :n]) for s, n in enumerate(n_live)]
+        starts = torch.stack([torch.searchsorted(r, lo, side="left")
+                              for r in rows])
+        ends = torch.stack([torch.searchsorted(r, hi, side="right")
+                            for r in rows])
         return starts, ends
 
     def hist_device_stream_batched(self, keys: torch.Tensor,

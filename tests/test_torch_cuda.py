@@ -863,10 +863,10 @@ def test_fill_wide_cells_match_plain(cuda, CS):
 
 
 def test_fill_out_of_order_slice_stays_in_bounds(cuda):
-    """A slice out of the kernel's order (keys of 2^63 and up, which an
-    int64 sort puts ahead of the rest and no sketch at c >= 2 holds): the
-    blocks find wrong ranges but write only their own cells, so the launch
-    completes, and the next launch on an ordered slice is exact."""
+    """A slice out of the kernel's uint64 order (keys of 2^63 and up put
+    ahead of the rest, as an int64 sort would put them): the blocks find
+    wrong ranges but write only their own cells, so the launch completes,
+    and the next launch on an ordered slice is exact."""
     rng = np.random.default_rng(5)
     B, n = 512, 20_000
     width = (1 << 32) // B
@@ -1294,3 +1294,154 @@ def test_seed_pack_occupancy(cuda):
     assert sp._resident_rows(torch.device(cuda)) == rows["ctas_per_sm"] * sms
     with pytest.raises(ValueError):
         sp.seed_pack_occupancy("tiles")
+
+
+# ---- c = 1: keys of 2^63 and up, in uint64 order (ROADMAP C1) ---------------
+
+_U64_MAX = np.iinfo(np.uint64).max
+
+
+def _c1_keys(rng, n):
+    """n distinct hashes kept at c = 1 (below u64::MAX), sorted in uint64
+    order, about half of them 2^63 or more."""
+    k = np.unique(rng.integers(0, _U64_MAX, size=n, dtype=np.uint64))
+    assert (k >= np.uint64(1 << 63)).any() and (k < np.uint64(1 << 63)).any()
+    return k
+
+
+@pytest.mark.parametrize("nt", [1, 4])
+@pytest.mark.parametrize("where", ["straddle", "top"])
+def test_fill_uint64_ordered_slice_matches_plain(cuda, nt, where):
+    """B1 on a slice sorted in uint64 order that holds keys of 2^63 and
+    up: across the 2^63 edge (bucket base below it), and at the top of the
+    range, where real high words reach 0xFFFFFFFF, the pad's."""
+    rng = np.random.default_rng(60 + nt)
+    B, width = 512, 1 << 12
+    base = (1 << 31) - (B // 2) * width if where == "straddle" \
+        else (1 << 32) - B * width
+    hi = rng.integers(base - 3 * width, min(base + (B + 2) * width, 1 << 32),
+                      size=20_000)
+    if where == "top":
+        hi[:300] = 0xFFFFFFFF
+    keys = np.unique((hi.astype(np.uint64) << np.uint64(32))
+                     | rng.integers(0, 1 << 32, size=hi.size,
+                                    dtype=np.uint64))
+    keys = keys[keys < _U64_MAX]
+    assert (keys >= np.uint64(1 << 63)).any()
+    if where == "top":
+        assert (keys >> np.uint64(32) == np.uint64(0xFFFFFFFF)).any()
+    P = keys.size + 500
+    k = np.full(P, -1, np.int64)
+    k[:keys.size] = keys.view(np.int64)
+    w = np.zeros(P, np.int32)
+    w[:keys.size] = rng.integers(0, 6, size=keys.size)
+    k, w = torch.from_numpy(k), torch.from_numpy(w)
+    kw = dict(width=width, B=B, CS=16, nt=nt,
+              subwidth=-(-width // nt) if nt > 1 else 0)
+    got = bf.bucket_fill(k.to(cuda), w.to(cuda), base, **kw)
+    want = bj._sample_to_buckets(k, w, base=base, **kw)
+    _equal(got, want)
+    assert int((want[1] > 0).sum()) > B
+
+
+@pytest.mark.parametrize("nt", [1, 4])
+def test_engine_c1_sweeps_on_card_match_cpu(cuda, nt):
+    """The grange engine over c = 1 hashes: the per-chunk sweep (hists),
+    the occurrence-stream sweep (hist_device_stream: fold_stream, device
+    offsets), the streamed device view (device sort, one-fetch mask) and
+    the batched sweep (batched_slices), each on the card equal to the
+    CPU's."""
+    from sylph_tpu_torch.engine.device_sketch import DeviceSampleStream
+    rng = np.random.default_rng(70 + nt)
+    G, m = 40, 150_000
+    kmers = _c1_keys(rng, m)
+    gids = rng.integers(0, G, size=kmers.size).astype(np.int32)
+    sk = np.unique(np.concatenate([rng.choice(kmers, size=4000),
+                                   _c1_keys(rng, 4000)]))
+    sc = rng.integers(1, 40, size=sk.size).astype(np.uint32)
+    idx = gr.build_grange_index(kmers, gids, G, chunk_slots=1 << 15,
+                                target_mean=512 if nt > 1 else 64, nt=nt,
+                                device=cuda)
+    assert idx.edges_u64[0, 0] < np.uint64(1 << 63) <= idx.edges_u64[-1, 1]
+    on_cpu = gr.GRangeEngine(idx, device="cpu")
+    on_card = gr.GRangeEngine(idx, device=cuda)
+    want = on_cpu.hists(sk, sc)
+    np.testing.assert_array_equal(on_card.hists(sk, sc), want)
+    assert want.sum() > 0
+
+    stream = np.repeat(sk.view(np.int64), np.minimum(sc, 5))
+    stream = torch.from_numpy(rng.permutation(stream))
+    h_cpu, p_cpu, _ = on_cpu.hist_device_stream(stream)
+    h_card, p_card, _ = on_card.hist_device_stream(stream.to(cuda))
+    assert torch.equal(h_card.cpu(), h_cpu) and int(p_cpu[0]) == 0
+    assert torch.equal(p_card.cpu(), p_cpu)
+
+    def view(device):
+        st = DeviceSampleStream(torch.device(device))
+        perm = rng.permutation(sk.size)
+        st.push(sk[perm])
+        return st.finalize(sk[perm], sc[perm])
+    nk = torch.from_numpy(np.bincount(gids, minlength=G).astype(np.int32))
+
+    def mask_fn(h):
+        return (h.view(G, -1)[:, 1:].sum(1) * 50 > nk.to(h.device))
+    a = on_cpu.candidate_mask_stream(view("cpu"), mask_fn)
+    b = on_card.candidate_mask_stream(view(cuda), mask_fn)
+    assert a is not None and b is not None
+    np.testing.assert_array_equal(a[0], b[0])
+    assert a[1] == b[1] and a[0].any()
+
+    tables = [(sk, sc), (sk[::3], sc[::3])]
+    np.testing.assert_array_equal(on_card.hists_batched(tables),
+                                  on_cpu.hists_batched(tables))
+    assert on_card.counters == on_cpu.counters
+
+
+def _c1_world(tmp, rng):
+    """db.syldb of 70 genomes of c = 1 hashes (64 or more, so the grange
+    regime's device prefilter sweeps) and s.sylsp planting 6 of them, for
+    the CLI."""
+    from sylph_tpu_torch.core.types import GenomeSketch, SequencesSketch
+    from sylph_tpu_torch.io import sylformat
+    pool = _c1_keys(rng, 400_000)
+    gs = [GenomeSketch(rng.choice(pool, size=5000, replace=False),
+                       np.empty(0, np.uint64), f"g{i}.fa", f"c{i}", 1, 31,
+                       5000, 30) for i in range(70)]
+    picks = rng.choice(70, size=6, replace=False)
+    km = np.unique(np.concatenate([gs[g].genome_kmers for g in picks]
+                                  + [_c1_keys(rng, 20_000)]))
+    sk = SequencesSketch(km, (1 + rng.poisson(3, size=km.size)).astype(
+        np.uint32), 1, 31, "s.fq", None, False, 150.0)
+    db, smp = str(tmp / "db.syldb"), str(tmp / "s.sylsp")
+    sylformat.write_syldb(db, gs)
+    sylformat.write_sylsp(smp, sk)
+    return db, smp, {gs[g].file_name for g in picks}
+
+
+def test_c1_regimes_on_card_give_one_tsv(cuda, tmp_path, monkeypatch):
+    """profile of a c = 1 database on the card in the bucket and grange
+    regimes (BUCKET_MIN, CHUNK and GRANGE_MIN patched) gives the merge
+    regime's TSV, which lists the planted genomes, and the CPU's."""
+    from sylph_tpu_torch import cli
+    from sylph_tpu_torch.engine.device_exec import DeviceContainment
+    db, smp, planted = _c1_world(tmp_path, np.random.default_rng(80))
+    tsv = {}
+    for regime, dev in (("merge", "cuda"), ("bucket", "cuda"),
+                        ("grange", "cuda"), ("grange", "cpu")):
+        monkeypatch.setattr(DeviceContainment, "BUCKET_MIN",
+                            1000 if regime == "bucket" else 1 << 24)
+        monkeypatch.setattr(DeviceContainment, "CHUNK",
+                            1 << 16 if regime == "bucket" else 1 << 22)
+        monkeypatch.setattr(DeviceContainment, "GRANGE_MIN",
+                            0 if regime == "grange" else 1 << 26)
+        out = tmp_path / f"{regime}_{dev}.tsv"
+        n0 = dict(bj._cuda.LAUNCHES)
+        assert cli.main(["profile", db, smp, "-c", "1", "--device", dev,
+                         "-o", str(out)]) == 0
+        if dev == "cuda" and regime != "merge":
+            assert bj._cuda.LAUNCHES["B1_fill"] > n0.get("B1_fill", 0)
+        tsv[regime, dev] = out.read_text()
+    want = tsv["merge", "cuda"]
+    assert {r.split("\t")[1] for r in want.splitlines()[1:]} == planted
+    for key, got in tsv.items():
+        assert got == want, key
