@@ -159,6 +159,29 @@ and drives the port's main path once, at database scale:
      sorted in uint64 order with keys of 2^63 and up, equals its plain
      version.
 
+  9. Several devices and processes, on the one card (right after (3) the
+     main engine's layout is saved once with SYLPH_GRANGE_CACHE's writer:
+     its seconds and bytes). They prove placement, ownership, collectives
+     and merging exact with the real kernels, nothing about scaling.
+     (z) One process, two logical devices: the layout loaded from that
+     cache into a GRangeEngine on [cuda:0, cuda:0]; sample.sylsp's and
+     deep.sylsp's histograms equal (a)'s oracle and a one-device engine's
+     (each sweep timed beside that one's), B1 and B2 (B4 on deep)
+     launch once a chunk; then (j)'s and (o)'s calls with
+     DeviceContainment on [cuda:0, cuda:0]: the sharded merge join, TSVs
+     byte for byte, (o)'s four samples in one batched sharded join.
+     (aa) Two processes: ``profile db.syldb sample.sylsp deep.sylsp
+     --coordinator 127.0.0.1:PORT --num-processes 2 --process-id i`` with
+     SYLPH_GRANGE_CACHE set, through cli.main in ``python -m
+     sylph_tpu_torch.multichip worker cli``; process 0's rows equal the
+     main call's for both samples, process 1 writes nothing, each process
+     launches B1 and B2/B4 on exactly its chunks; each process's wall,
+     stage split (its GTDB-scale cache load among them) and device memory.
+     (ab) make_sharded_profile_step on (q)'s data: two gloo ranks sharing
+     the card (dp = 2, each half of every batch's reads and half the
+     index), then one NCCL rank; every rank's histogram equals (q)'s, its
+     statistics (q)'s within rtol 1e-5, and B6 and B8 launch in every rank.
+
 Any failed check raises and the script exits non-zero. The last lines are
 the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -1006,7 +1029,8 @@ def _merge_cohort_phase(a, work, db, genomes, small):
     """(o): ``profile small.syldb`` of small.sylsp and three more planted
     samples (distinct planted sets) at the default merge depth of 8: one
     batched merge join, its counts equal to per-sample joins, and each
-    sample's TSV rows list exactly its planted genomes."""
+    sample's TSV rows list exactly its planted genomes. Returns (the
+    samples' paths, the TSV's path)."""
     import torch
 
     from sylph_tpu_torch.gpu.containment import (merge_join_counts,
@@ -1055,6 +1079,7 @@ def _merge_cohort_phase(a, work, db, genomes, small):
           "per-sample joins; each TSV lists exactly its planted genomes")
     print("merge cohort profile (depth 8): " + json.dumps(split))
     torch.cuda.synchronize()
+    return paths, tsv
 
 
 def _bucket_phase(a, work):
@@ -1273,10 +1298,12 @@ def _pipeline_run(batches, lens, ikey, gids, nk, live, kw,
     return hist, st, parts, launches, stages
 
 
-def _profile_phase(a, dev):
+def _profile_phase(a, dev, work):
     """(q) bench.py's profile config on the card through the one-shot
-    pipeline, and (s) the same batches under SYLPH_SEED_T=1 (B9). Returns
-    (one batch, its lengths, (q)'s launches, (s)'s launches)."""
+    pipeline, and (s) the same batches under SYLPH_SEED_T=1 (B9). (q)'s
+    batches and index are written under ``work``/step for (ab). Returns
+    (one batch, its lengths, (q)'s launches, (s)'s launches, (ab)'s data
+    directory, (q)'s histogram and statistics on the host)."""
     import torch
 
     from sylph_tpu_torch.gpu import pipeline as pl
@@ -1363,6 +1390,12 @@ def _profile_phase(a, dev):
             r, ikey, gids, nk, **kw), 2) for r in smp))
     print("one-shot profile (q): " + json.dumps(stages))
     del smp, hb, parts
+    from sylph_tpu_torch.multichip import save_step_data
+    step_dir = os.path.join(work, "step")
+    save_step_data(step_dir, torch.stack(batches).cpu().numpy(),
+                   torch.stack(lens).cpu().numpy(), idx.keys,
+                   idx.genome_ids, idx.n_kmers, c=C, **kw)
+    q_ref = (hist.cpu().numpy(), type(st)(*[f.cpu() for f in st]))
 
     # (s): the transposed kernel (B9) on the same batches. Its [16, N]
     # keys hold every read's first survivor in row 0 (about 68% live), the
@@ -1413,7 +1446,7 @@ def _profile_phase(a, dev):
     print("A5b, sketch stage of the same 64 batches: " + json.dumps(dict(
         q_b6_ms=stages["sketch_s"] * 1e3,
         s_transpose_and_b9_ms=s_stages["sketch_s"] * 1e3)))
-    return batches[0], lens[0], q_launches, s_launches
+    return batches[0], lens[0], q_launches, s_launches, step_dir, q_ref
 
 
 def _gtdb_pipeline_phase(dc, codes):
@@ -2783,6 +2816,243 @@ def _c1_phase(a, work, asm_paths):
     torch.cuda.synchronize()
 
 
+# ---- (z)-(ab): several devices and several processes, on the one card ------
+#
+# The card is one H100: (z) gives one engine two logical devices on it,
+# (aa) runs two processes on it and (ab) two ranks. They hold placement,
+# ownership, the collectives and the merges to exact results with the real
+# kernels; they say nothing of scaling over GPUs.
+
+MP_TIMEOUT_S = 600             # each group of processes, killed past it
+
+
+def _save_layout(dc, work):
+    """The main engine's grange layout saved once with SYLPH_GRANGE_CACHE's
+    writer (for (z) and (aa)); prints its seconds and bytes. Returns (the
+    cache directory, the layout's path, total k-mers, genomes)."""
+    from sylph_tpu_torch.engine.device_exec import (_grange_cache_path,
+                                                    _grange_cache_save)
+    g = dc._grange.gidx
+    cache = os.path.join(work, "grange_cache")
+    path = _grange_cache_path(cache, int(g.m), dc._genome_sketches)
+    t0 = time.perf_counter()
+    _grange_cache_save(path, g)
+    sec = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    print("grange layout cache save (GTDB scale): " + json.dumps(dict(
+        seconds=sec, bytes=size, chunks=len(g.chunk_keys),
+        disk_free_bytes=shutil.disk_usage(work).free)))
+    return cache, path, int(g.m), len(dc._genome_sketches), \
+        len(g.chunk_keys)
+
+
+def _multidevice_phase(work, samples, oracles, layout, small_db, small,
+                       merge_tsv, cohort):
+    """(z): one process, two logical devices on the one card. The main
+    path's layout, loaded from (3)'s cache, in a GRangeEngine on [cuda:0,
+    cuda:0]: sample.sylsp's and deep.sylsp's histograms equal (a)'s oracle
+    and a one-device engine's (each sweep timed, then that engine's on the
+    same sample), each launch count a sweep is the chunk count (B1, and B2
+    or B4) or more (B3's chains). Then DeviceContainment on [cuda:0,
+    cuda:0] in (j)'s and (o)'s calls: the sharded merge join, TSVs equal
+    (j)'s and (o)'s byte for byte, (o)'s cohort in one batched sharded
+    join."""
+    import torch
+
+    from sylph_tpu_torch.engine import runner
+    from sylph_tpu_torch.engine.device_exec import (DeviceContainment,
+                                                    _grange_cache_load)
+    from sylph_tpu_torch.gpu import _cuda
+    from sylph_tpu_torch.gpu.grange import GRangeEngine
+    from sylph_tpu_torch.io import sylformat
+
+    two = [torch.device("cuda", 0)] * 2
+    _cache, path, total, n_genomes, _n = layout
+    t0 = time.perf_counter()
+    gidx = _grange_cache_load(path, total, n_genomes)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = GRangeEngine(gidx, devices=two)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    one = GRangeEngine(gidx, devices=two[:1])     # one device, beside it
+    n = len(gidx.chunk_keys)
+    out = dict(cache_load_s=load_s, upload_s=upload_s, chunks=n)
+    for name in ("sample", "deep"):
+        sk, sc = sylformat.read_sylsp(samples[name][0]).sorted_view()
+        sk = sk.astype(np.uint64)
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        got = eng.hists(sk, sc)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        la = dict(_cuda.LAUNCHES)
+        t0 = time.perf_counter()
+        got1 = one.hists(sk, sc)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        if not (np.array_equal(got, oracles[name])
+                and np.array_equal(got1, got)):
+            _fail(f"(z) {name} on two devices: [G, 64] histogram differs "
+                  f"from (a)'s oracle in {int((got != oracles[name]).sum())}"
+                  f" bins, from one device's in {int((got != got1).sum())}")
+        cmp_ = la["B2_join_codes_compact"] + la["B4_join_codes"]
+        if la["B1_fill"] != n or cmp_ != n or la["B3_repack"] < n:
+            _fail(f"(z) {name}: B1 {la['B1_fill']}, B2+B4 {cmp_}, B3 "
+                  f"{la['B3_repack']} launches for {n} chunks")
+        out[name] = dict(sweep_s=sweep_s, one_device_sweep_s=one_s,
+                         B1=la["B1_fill"], B2=la["B2_join_codes_compact"],
+                         B4=la["B4_join_codes"], B3=la["B3_repack"],
+                         B5=la["B5_join_counts"])
+    out["hists_sweeps"] = eng.counters["hists_sweeps"]
+    del eng, one, gidx
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"check (z): the {n}-chunk index on two devices of the one card "
+          "gives (a)'s histograms for sample and deep; B1 and B2/B4 once a "
+          "chunk")
+    make = runner._device_engine_for
+    runner._device_engine_for = (
+        lambda gsf, gf, gs, device: DeviceContainment(gs, devices=two))
+    try:
+        tsv_j = os.path.join(work, "z_small.tsv")
+        _l, wall_j, _st, dc = _drive(["profile", small_db, small[0], "-o",
+                                      tsv_j])
+        if dc._shards is None or dc.counters["sharded_joins"] < 1:
+            _fail(f"(z) (j)'s call took no sharded join: {dc.counters}")
+        _same_file(tsv_j, merge_tsv, "(z) sharded (j)")
+        paths, cohort_tsv = cohort
+        tsv_o = os.path.join(work, "z_cohort.tsv")
+        _l, wall_o, _st, dco = _drive(["profile", small_db, *paths, "-o",
+                                       tsv_o])
+        if dco.counters != {"batched_joins": 1, "sharded_joins": 1}:
+            _fail(f"(z) (o)'s cohort: not one batched sharded join: "
+                  f"{dco.counters}")
+        _same_file(tsv_o, cohort_tsv, "(z) sharded (o)")
+    finally:
+        runner._device_engine_for = make
+    out.update(merge_sharded_wall_s=wall_j, cohort_sharded_wall_s=wall_o,
+               index_slots=int(dc.index.keys.size))
+    del dc, dco
+    print(f"check (z): DeviceContainment on two devices takes the sharded "
+          f"merge join; (j)'s and (o)'s TSVs byte for byte, (o)'s "
+          f"{len(paths)} samples in one batched sharded join")
+    print("multi-device (z), two devices sharing one H100: "
+          + json.dumps(out))
+
+
+def _process_phase(work, db, samples, main_tsv, layout):
+    """(aa): two processes on the main path's database and the one card:
+    ``profile db.syldb sample.sylsp deep.sylsp --coordinator ...
+    --num-processes 2 --process-id i`` with SYLPH_GRANGE_CACHE set (each
+    loads only its chunks' grids of (3)'s cache), through cli.main in
+    ``python -m sylph_tpu_torch.multichip worker cli`` (which reports the
+    call's launches, stages and device memory). Process 0's TSV holds the
+    main call's rows for both samples byte for byte; process 1 writes
+    nothing; each launches B1 and B2/B4 on exactly its chunks, per sample."""
+    from sylph_tpu_torch import multichip
+
+    cache, _path, _total, _g, n_chunks = layout
+    addr = f"127.0.0.1:{multichip.free_port()}"
+    outs = [os.path.join(work, f"aa_out{i}.tsv") for i in range(2)]
+    reps = [os.path.join(work, f"aa_report{i}.json") for i in range(2)]
+    names = [samples[n][0] for n in ("sample", "deep")]
+    argvs = [multichip.worker_argv(
+        "cli", addr, 2, i, "--report", reps[i], "--", "profile", db, *names,
+        "-o", outs[i], "--coordinator", addr, "--num-processes", "2",
+        "--process-id", str(i), "--debug") for i in range(2)]
+    t0 = time.perf_counter()
+    res = multichip.run_ranks(argvs, MP_TIMEOUT_S, env=dict(
+        os.environ, SYLPH_GRANGE_CACHE=cache))
+    wall = time.perf_counter() - t0
+    for i, (rc, _so, se) in enumerate(res):
+        if rc != 0:
+            _fail(f"(aa) process {i} exited {rc}:\n{se[-3000:]}")
+    if os.path.exists(outs[1]) or res[1][1]:
+        _fail("(aa) process 1 wrote output")
+    got, main = _tsv_rows(outs[0]), _tsv_rows(main_tsv)
+    want = {f"{n}.fq": main[f"{n}.fq"] for n in ("sample", "deep")}
+    if got != want:
+        _fail(f"(aa) process 0's rows differ from the main call's: "
+              f"{ {k: len(v) for k, v in got.items()} } rows against "
+              f"{ {k: len(v) for k, v in want.items()} }")
+    per = []
+    for i, rep in enumerate(reps):
+        with open(rep) as f:
+            r = json.load(f)
+        la = r["launches"]
+        split = {}
+        for name, sec in r["stages"]:
+            key = name.split(" (")[0]
+            split[key] = split.get(key, 0.0) + sec
+        per.append(dict(process=i, wall_s=r["wall_s"], stages=split,
+                        launches=la,
+                        max_memory_allocated=r["max_memory_allocated"]))
+        owned = len(range(i, n_chunks, 2))
+        cmp_ = la.get("B2_join_codes_compact", 0) + la.get("B4_join_codes",
+                                                            0)
+        if la.get("B1_fill", 0) != owned * len(names) or \
+                cmp_ != owned * len(names) or "grange cache load" not in split:
+            _fail(f"(aa) process {i}: launches {la} for {owned} chunks of "
+                  f"{n_chunks} and {len(names)} samples, stages "
+                  f"{sorted(split)}")
+    print(f"check (aa): two processes, each sweeping only its own "
+          f"{n_chunks // 2} or so of the {n_chunks} chunks (B1 and B2/B4 "
+          "once a chunk and sample); process 0's TSV == the main call's "
+          "rows for sample and deep; process 1 wrote nothing")
+    print("two processes (aa), sharing one H100: " + json.dumps(dict(
+        wall_s=wall, per_process=per)))
+
+
+def _step_phase(work, step_dir, q_ref):
+    """(ab): make_sharded_profile_step on (q)'s 64 batches and index: two
+    gloo ranks sharing the card (dp = 2, ip = 1), each taking half of every
+    batch's reads and half the index, then one NCCL rank (world size 1).
+    Every rank's histogram equals (q)'s and its statistics (q)'s within
+    rtol 1e-5; B6 and B8 launch in every rank."""
+    import torch
+
+    from sylph_tpu_torch import multichip
+    from sylph_tpu_torch.gpu.stats import GenomeStats
+
+    q_hist, q_st = q_ref
+    out = {}
+    for backend, world in (("gloo", 2), ("nccl", 1)):
+        addr = f"127.0.0.1:{multichip.free_port()}"
+        base = os.path.join(work, f"ab_{backend}")
+        t0 = time.perf_counter()
+        res = multichip.run_ranks([multichip.worker_argv(
+            "step", addr, world, r, "--backend", backend, "--device", "cuda",
+            "--data", step_dir, "--out", base) for r in range(world)],
+            MP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        for r, (rc, _so, se) in enumerate(res):
+            if rc != 0:
+                _fail(f"(ab) {backend} rank {r} exited {rc}:\n{se[-3000:]}")
+        ranks = []
+        for r in range(world):
+            z = np.load(f"{base}.rank{r}.npz")
+            la = json.loads(str(z["launches"]))
+            if not np.array_equal(z["hist"], q_hist):
+                _fail(f"(ab) {backend} rank {r}: histogram differs from "
+                      f"(q)'s in {int((z['hist'] != q_hist).sum())} bins")
+            _stats_close(f"(ab) {backend} rank {r}", GenomeStats(
+                *[torch.from_numpy(z[f]) for f in GenomeStats._fields]),
+                q_st)
+            if la.get("B6_seed_pack", 0) < 1 or la.get("B8_repack2", 0) < 1:
+                _fail(f"(ab) {backend} rank {r}: launches {la}")
+            ranks.append(dict(rank=r, step_s=float(z["wall_s"]),
+                              dp=int(z["dp"]), ip=int(z["ip"]), launches=la,
+                              max_memory_allocated=int(
+                                  z["max_memory_allocated"])))
+        out[backend] = dict(wall_s=wall, ranks=ranks)
+    print("check (ab): the sharded step on (q)'s data, two gloo ranks "
+          "sharing the card (dp = 2) and one NCCL rank, == (q)'s histogram "
+          "and statistics; B6 and B8 launched in every rank")
+    print("sharded step (ab), ranks sharing one H100: " + json.dumps(out))
+
+
 def main(argv=None) -> int:
     a = _parse(argv)
     import torch
@@ -2794,6 +3064,10 @@ def main(argv=None) -> int:
 
     smi = _smi()
     print(smi)
+    with open("/proc/meminfo") as f:
+        print("host: " + json.dumps(dict(
+            mem_total=f.readline().split(":")[1].strip(),
+            cpus=os.cpu_count())))
     t0 = time.perf_counter()
     _cuda.build_all()
     print("build: " + json.dumps(dict(
@@ -2805,8 +3079,7 @@ def main(argv=None) -> int:
         reduced.update(kmers_per_genome=[KMERS_PER_GENOME,
                                          a.kmers_per_genome],
                        index_kmers=GENOMES * a.kmers_per_genome)
-    if reduced:
-        print("reduced: " + json.dumps(reduced))
+    print("reduced: " + json.dumps(reduced))
 
     # generated data (about 9 GB), removed at the end
     work = os.path.abspath(os.path.join("build", "chip_smoke"))
@@ -2829,18 +3102,21 @@ def main(argv=None) -> int:
         print(f"index: {len(g.chunk_keys)} chunks of [{g.B}, {g.CI}], "
               f"nt={g.nt}, {g.spill_kmers.size} spilled, "
               f"{g.n_heavy} heavy runs")
+        layout = _save_layout(dc, work)
         loaded = _check_outputs(dc, samples, tsv)
+        oracles = {n: loaded[n][3] for n in ("sample", "deep")}
         host_tbl = _check_reads(dc, reads, card, host_path, abundant, tsv,
                                 per, ingest)
         cohort = {samples[n][0]: loaded[n][3] for n in ("sample", "deep")}
         cohort[host_path] = host_tbl[2]
         c_launches = _cohort_phase(dc, db, cohort, tsv, per)
-        batch, blens, q_launches, s_launches = _profile_phase(a, dc.device)
+        batch, blens, q_launches, s_launches, step_dir, q_ref = \
+            _profile_phase(a, dc.device, work)
         r_batch = _gtdb_pipeline_phase(dc, read_codes)
         del read_codes
         small_db, asm_paths, sk_launches = _sketch_phase(a, work)
         genomes, small, merge_tsvs = _merge_phase(a, work, small_db)
-        _merge_cohort_phase(a, work, small_db, genomes, small)
+        cohort_o = _merge_cohort_phase(a, work, small_db, genomes, small)
         bdc, bsmp, b_launches, bucket_paths = _bucket_phase(a, work)
         rows, record, shared = _kernels(dc, loaded, launches, reads)
         _batched_kernels(dc, [loaded["sample"][1:3], loaded["deep"][1:3],
@@ -2865,10 +3141,17 @@ def main(argv=None) -> int:
                     work, db, reads, samples, host_path, tsv)),
                 ("x", lambda: _api_phase(work, small_db, small,
                                          merge_tsvs)),
-                ("y", lambda: _c1_phase(a, work, asm_paths))):
+                ("y", lambda: _c1_phase(a, work, asm_paths)),
+                ("z", lambda: _multidevice_phase(
+                    work, samples, oracles, layout, small_db, small,
+                    merge_tsvs[0], cohort_o)),
+                ("aa", lambda: _process_phase(work, db, samples, tsv,
+                                              layout)),
+                ("ab", lambda: _step_phase(work, step_dir, q_ref))):
             t0 = time.perf_counter()
             phase()
             gc.collect()
+            torch.cuda.empty_cache()
             print(f"phase ({tag}): {time.perf_counter() - t0:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)

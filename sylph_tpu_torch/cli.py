@@ -1,10 +1,15 @@
 """Command-line interface: ``python -m sylph_tpu_torch {sketch, profile,
 query, inspect}``.
 
-The flags are sylph_tpu's (sylph src/cmdline.rs), less ``--tpu`` and the
-multi-host flags (``--coordinator``, ``--num-processes``, ``--process-id``),
-plus ``--device {cuda,cpu}`` (default cuda: seeding and containment run on
-the GPU unless the CPU is asked for). ``sketch`` takes genomes (``-g``,
+The flags are sylph_tpu's (sylph src/cmdline.rs), less ``--tpu``, plus
+``--device {cuda,cpu}`` (default cuda: seeding and containment run on every
+visible GPU, or the first ``SYLPH_TPU_DEVICES``, unless the CPU is asked
+for). ``profile``/``query`` with ``--coordinator HOST:PORT --num-processes N
+--process-id i`` run as process i of N (a gloo group, utils/distributed.py):
+every process runs the same command, the grange engine splits the chunks
+between them and merges the histograms, and process 0 writes the TSV; with
+``--device cpu`` every process runs the plain kernels. ``sketch`` takes
+genomes (``-g``,
 fasta files, ``--gl``) into one ``.syldb`` and reads (``-r``, ``--rl``,
 ``-1/-2``, ``--l1/--l2``, fastq files) into ``.sylsp`` samples;
 ``profile``/``query`` take ``.syldb`` databases or genome fasta files, and
@@ -22,6 +27,7 @@ import sys
 from .engine.inspect_cmd import InspectOptions, inspect
 from .engine.runner import ContainOptions, contain, serve
 from .engine.sketch_cmd import SketchOptions, sketch
+from .utils.distributed import init_from_flags, shutdown
 
 
 def _setup_logging(trace: bool = False, debug: bool = False):
@@ -137,6 +143,16 @@ def _add_contain(sub, name, helptext):
                    "(one per line, two whitespace-separated paths for a "
                    "read pair), writing each sample's TSV rows at once; "
                    "EOF ends the loop")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="several processes: the address process 0 listens "
+                   "on. Run the SAME command in every process with "
+                   "--num-processes/--process-id; the database-scale "
+                   "device index shares its chunks between the processes "
+                   "and process 0 writes the TSV")
+    p.add_argument("--num-processes", dest="num_processes", type=int,
+                   default=None, help=argparse.SUPPRESS)
+    p.add_argument("--process-id", dest="process_id", type=int,
+                   default=None, help=argparse.SUPPRESS)
     _device_flag(p, "seeding and containment")
     return p
 
@@ -265,8 +281,15 @@ def main(argv=None) -> int:
             inspect(InspectOptions(files=args.files,
                                    out_file_name=args.out_file_name))
         else:
-            run = serve if args.serve else contain
-            run(_contain_options(args), pseudotax=(args.mode == "profile"))
+            grouped = init_from_flags(args.coordinator, args.num_processes,
+                                      args.process_id)
+            try:
+                run = serve if args.serve else contain
+                run(_contain_options(args),
+                    pseudotax=(args.mode == "profile"))
+            finally:
+                if grouped:
+                    shutdown()
     except SystemExit as e:
         return int(e.code or 0)
     except BrokenPipeError:

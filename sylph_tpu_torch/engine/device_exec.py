@@ -17,8 +17,20 @@ In the merge and bucket regimes the exact statistics read the cached device
 counts (genome_covs). Statistics stay in host f64 either way, so TSVs stay
 byte-identical to the host engine. ``prefetch`` batches a cohort of samples
 (merge: one batched join; grange: one batched histogram sweep; bucket:
-nothing, its samples are served one at a time). The JAX package's
-multi-device sharding is not ported.
+nothing, its samples are served one at a time).
+
+Several devices and processes, as in the JAX package (device_exec.py:
+101-174). ``devices`` (default: every visible GPU for "cuda", one CPU device
+for "cpu"), cut to the first ``SYLPH_TPU_DEVICES``; asking for more than
+exist raises. Below GRANGE_MIN on more than one device the index shards
+evenly over the devices and every sample joins each shard (the sharded
+merge join; never the bucket regime). In the grange regime the chunks go
+round-robin over the devices, and in a process group of several processes
+(utils/distributed.py) each process owns a round-robin share of the chunks
+and ``hists`` sums the processes' partial histograms. The streamed device
+view, the device candidate mask and the batched grange sweep are
+one-device, one-process paths: elsewhere samples are swept one at a time
+from their host tables.
 
 ``SYLPH_GRANGE_CACHE=DIR`` keeps the grange layout on disk: the first call
 on a database builds it and saves it under DIR, later calls load it. The
@@ -37,10 +49,14 @@ import torch
 from ..core.types import GenomeSketch, SequencesSketch
 from ..gpu.bucket_join import bucket_join_counts, build_bucketed_index
 from ..gpu.containment import (build_host_index, merge_join_counts,
-                                merge_join_counts_batched)
+                                merge_join_counts_batched,
+                                merge_join_counts_sharded,
+                                merge_join_counts_sharded_batched,
+                                shard_index)
 from ..gpu.grange import (GRangeEngine, GRangeIndex, build_grange_index,
-                          resolve_device)
+                          merge_process_hists, resolve_device)
 from ..gpu.keys import KEY_PAD
+from ..utils.distributed import process_count, process_index
 from ..utils.timing import stage_timer
 
 log = logging.getLogger("sylph")
@@ -48,26 +64,63 @@ log = logging.getLogger("sylph")
 _CACHE_CAP = 16      # cached samples per cache; a prefetch grows it to S + 2
 
 
+def resolve_devices(device="cuda", devices=None) -> List[torch.device]:
+    """The engine's device list: ``devices``, else every visible GPU for
+    "cuda" (one for "cuda:i") and one CPU device for "cpu", cut to the first
+    ``SYLPH_TPU_DEVICES``. Raises where the variable asks for more devices
+    than the list holds, or for CUDA without a GPU: nothing falls back."""
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+    else:
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            devs = [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        else:
+            devs = [dev]
+    if not devs:
+        raise ValueError("no device to run containment on")
+    env = os.environ.get("SYLPH_TPU_DEVICES")
+    if env:
+        n = max(1, int(env))
+        if n > len(devs):
+            raise ValueError(f"SYLPH_TPU_DEVICES={n} asks for more devices "
+                             f"than the {len(devs)} there are: "
+                             + ", ".join(map(str, devs)))
+        devs = devs[:n]
+    return devs
+
+
 class DeviceContainment:
-    """Holds the genome index on the device; serves per-sample counts,
-    histograms and candidate masks. ``device`` defaults to the GPU; asking
-    for it without one raises."""
+    """Holds the genome index on the device(s); serves per-sample counts,
+    histograms and candidate masks. ``device`` defaults to the GPU (every
+    visible one); asking for it without one raises. ``devices`` names the
+    devices outright (tests pass ``[cpu, cpu]``); a list may name one card
+    more than once."""
 
     CHUNK = 1 << 22       # index k-mers per device call (merge, bucket)
     BUCKET_MIN = 1 << 24  # bucketed join at/above this total index size
     GRANGE_MIN = 1 << 26  # global-range layout at/above this total size
 
-    def __init__(self, genome_sketches: List[GenomeSketch], device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, genome_sketches: List[GenomeSketch], device="cuda",
+                 devices=None):
+        self.devices = resolve_devices(device, devices)
+        self.device = self.devices[0]
         self._genome_sketches = genome_sketches
         self._grange = None
+        self._grange_span = None    # (process index, processes) or None
+        self._shards = None         # sharded merge join: per-device index
         self._cache = {}            # id(sample) -> (ref, [M] int32 counts)
         self._hists_cache = {}      # id(sample) -> (ref, [G, 64])
         self._cache_cap = _CACHE_CAP
-        self.counters = {"batched_joins": 0}    # merge-regime prefetches
+        # merge-regime prefetches (batched joins) and sharded joins (one a
+        # sample, or one a batch)
+        self.counters = {"batched_joins": 0, "sharded_joins": 0}
         total = int(sum(g.genome_kmers.size for g in genome_sketches))
         if total >= self.GRANGE_MIN:
             self._init_grange(total)
+        elif len(self.devices) > 1:
+            self._init_sharded(total)
         else:
             self._init_chunks(total)
 
@@ -110,6 +163,29 @@ class DeviceContainment:
                           f"[{b.n_buckets}, {b.key.shape[1]}]"
                           for b in self._bchunks[:1]), self.device)
 
+    def _init_sharded(self, total: int):
+        """Below GRANGE_MIN on n > 1 devices (device_exec.py:242-281): the
+        index padded to m = 1024 n slots, doubled until it holds the total,
+        and cut into n equal shards, one a device. Every sample joins each
+        shard; the counts concatenate in shard order."""
+        n_dev = len(self.devices)
+        m = 1024 * n_dev
+        while m < total:
+            m *= 2
+        gs = self._genome_sketches
+        self.index = build_host_index([g.genome_kmers for g in gs],
+                                      pad_multiple=m)
+        self.offsets = np.concatenate(
+            [[0], np.cumsum(self.index.n_kmers.astype(np.int64))])
+        self._use_buckets, self._index_dev, self._bchunks = False, None, []
+        with stage_timer(f"sharded index build ({total} k-mers)"):
+            self._shards = shard_index(self.index.keys, self.devices)
+            for d in {d for d in self.devices if d.type == "cuda"}:
+                torch.cuda.synchronize(d)
+        log.debug("Device index (sharded): %d genomes, %d k-mers in %d "
+                  "slots over %d device(s)", len(gs), total,
+                  self.index.keys.size, n_dev)
+
     def _init_grange(self, total: int):
         genome_sketches = self._genome_sketches
         self._mask_matches_hint = None    # last stream sweep's matches
@@ -117,9 +193,15 @@ class DeviceContainment:
         path = _grange_cache_path(cache, total, genome_sketches) \
             if cache else None
         gidx = None
+        # a process group of several processes (utils/distributed.py):
+        # this process owns a round-robin share of the chunks on its own
+        # devices, and hists() merges the partial histograms
+        if process_count() > 1:
+            self._grange_span = (process_index(), process_count())
         if path is not None and os.path.exists(os.path.join(path, _META)):
             with stage_timer("grange cache load"):
-                gidx = _grange_cache_load(path, total, len(genome_sketches))
+                gidx = _grange_cache_load(path, total, len(genome_sketches),
+                                          self._grange_span)
         if gidx is None:
             with stage_timer(f"grange index build ({total} k-mers)"):
                 kmers = np.concatenate(
@@ -131,39 +213,49 @@ class DeviceContainment:
                 gidx = build_grange_index(kmers, gids, len(genome_sketches),
                                           device=self.device)
                 del kmers, gids
-            if path is not None:
+            # every process builds the whole layout; only process 0 saves it
+            if path is not None and (self._grange_span is None
+                                     or self._grange_span[0] == 0):
                 with stage_timer("grange cache save"):
                     _grange_cache_save(path, gidx)
         max_res = self._grange_residency(gidx)
         with stage_timer("grange index upload"):
-            self._grange = GRangeEngine(gidx, device=self.device,
-                                        max_resident_chunks=max_res)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._grange = GRangeEngine(gidx, devices=self.devices,
+                                        max_resident_chunks=max_res,
+                                        process_span=self._grange_span)
+            for d in {d for d in self.devices if d.type == "cuda"}:
+                torch.cuda.synchronize(d)
         log.debug(
             "Device index (grange): %d genomes, %d k-mers, %d chunks of "
-            "[%d, %d] buckets (%s resident), %d spilled, on %s",
-            len(genome_sketches), total, len(gidx.chunk_keys), gidx.B,
-            gidx.CI, "all" if max_res is None else max_res,
-            gidx.spill_kmers.size, self.device)
+            "[%d, %d] buckets (%s resident), %d spilled, over %d device(s), "
+            "process span %s", len(genome_sketches), total,
+            len(gidx.chunk_keys), gidx.B, gidx.CI,
+            "all" if max_res is None else max_res, gidx.spill_kmers.size,
+            len(self.devices), self._grange_span)
 
     def _grange_residency(self, gidx):
-        """Resident-chunk cap when the index exceeds 70% of device memory
-        (None = everything resident). Chunks past the cap upload per
-        sample."""
+        """Resident-chunk cap when the index exceeds 70% of the devices'
+        memory (None = everything resident): the chunks that fit in one
+        device, times the count of distinct devices (logical devices on one
+        card share its memory). Chunks past the cap upload per sample."""
         if self.device.type != "cuda":
             return None
         n_chunks = len(gidx.chunk_keys)
         chunk_bytes = gidx.B * gidx.CI * 12
         _free, total = torch.cuda.mem_get_info(self.device)
-        cap = int(0.7 * total) // max(chunk_bytes, 1)
+        n_cards = len(set(self.devices))
+        cap = int(0.7 * total) // max(chunk_bytes, 1) * n_cards
         return None if cap >= n_chunks else max(1, cap)
 
-    def serves_streams(self) -> bool:
-        """True iff the grange regime: sample_streamer() returns a stream,
-        and the engine serves histograms only, so exact statistics probe
-        the host."""
+    def serves_histograms(self) -> bool:
+        """True iff the grange regime: the engine serves histograms only,
+        so exact statistics probe the host."""
         return self._grange is not None
+
+    def serves_streams(self) -> bool:
+        """True iff sample_streamer() returns a stream: the grange regime
+        on one device in one process."""
+        return self._grange is not None and self._grange._one_device()
 
     def sample_streamer(self):
         """A DeviceSampleStream for a sample about to be sketched from raw
@@ -196,10 +288,16 @@ class DeviceContainment:
             return hit
         n = int(sample.kmers.size)
         skey, sw = self.upload_table(sample)
-        regime = "bucketed" if self._use_buckets else "merge"
+        regime = ("bucketed" if self._use_buckets else "merge"
+                  if self._shards is None
+                  else f"sharded over {len(self.devices)} devices")
         with stage_timer(f"device containment join ({self.index.keys.size}"
                          f" k-mers x {n} sample k-mers, {regime})"):
-            counts = self.device_counts(skey, sw, n).cpu().numpy()
+            if self._shards is not None:
+                self.counters["sharded_joins"] += 1
+                counts = merge_join_counts_sharded(self._shards, skey, sw)
+            else:
+                counts = self.device_counts(skey, sw, n).cpu().numpy()
         self._cache_put(self._cache, sample, counts)
         return counts
 
@@ -226,7 +324,7 @@ class DeviceContainment:
         if self._grange is not None:
             todo = [s for s in samples if s._device_view is None
                     and self._cached(self._hists_cache, s) is None]
-            if len(todo) < 2:
+            if len(todo) < 2 or not self._grange._one_device():
                 return
             with stage_timer(f"sample tables ({len(todo)} samples)"):
                 tables = [s.sorted_view() for s in todo]
@@ -244,11 +342,18 @@ class DeviceContainment:
             keys, wts = self.upload_tables(todo)
         self._cache_cap = max(self._cache_cap, len(todo) + 2)
         self.counters["batched_joins"] += 1
-        with stage_timer(f"batched containment join ({self.index.keys.size}"
+        sharded = self._shards is not None
+        with stage_timer(f"batched {'sharded ' if sharded else ''}"
+                         f"containment join ({self.index.keys.size}"
                          f" k-mers x {len(todo)} samples x {keys.shape[1]} "
                          "table slots)"):
-            counts = merge_join_counts_batched(self._index_dev, keys,
-                                               wts).cpu().numpy()
+            if sharded:
+                self.counters["sharded_joins"] += 1
+                counts = merge_join_counts_sharded_batched(self._shards,
+                                                           keys, wts)
+            else:
+                counts = merge_join_counts_batched(self._index_dev, keys,
+                                                   wts).cpu().numpy()
         for s, c in zip(todo, counts):
             self._cache_put(self._cache, s, c)
 
@@ -285,15 +390,17 @@ class DeviceContainment:
         return out
 
     def candidates_mask(self, sample: SequencesSketch, mask_kwargs: dict):
-        """[G] bool candidate mask computed ON DEVICE (grange regime), or
-        None: outside grange, where the prefilter reads the histogram of
-        the exact counts; for a sample whose histogram ``prefetch`` cached,
+        """[G] bool candidate mask computed ON DEVICE (grange regime, one
+        device, one process), or None: outside grange, where the prefilter
+        reads the histogram of the exact counts; on several devices or
+        processes, where it reads the merged histogram (device_exec.py:
+        456-457); for a sample whose histogram ``prefetch`` cached,
         which the prefilter then reads through ``hists`` (the JAX package
         sweeps such a sample again here, device_exec.py:517-529); or when
         the index has heavy runs (their marker bins expand on the host) or
         a degenerate spill list. Spill only ADDS counts, so genomes with
         any spill hit are OR-ed into the candidate set (superset-safe)."""
-        if self._grange is None or \
+        if self._grange is None or not self._grange._one_device() or \
                 self._cached(self._hists_cache, sample) is not None:
             return None
         g = self._grange.gidx
@@ -363,8 +470,12 @@ class DeviceContainment:
         with stage_timer(
                 f"device grange hists ({self._grange.gidx.m} k-mers x "
                 f"{sample.kmers.size} sample k-mers)"):
-            return self._grange.hists(None, None, device_view=dv,
-                                      table_fn=table_fn)
+            out = self._grange.hists(None, None, device_view=dv,
+                                     table_fn=table_fn)
+        if self._grange_span is not None:
+            with stage_timer("process hists merge"):
+                out = merge_process_hists(out)
+        return out
 
     def genome_covs(self, genome_index: int, sample: SequencesSketch,
                     winner=None, self_group: int = -1):
@@ -446,18 +557,21 @@ def _grange_cache_path(cache_dir: str, total: int, genome_sketches) -> str:
                         f"{total}_{fp}_ntauto")
 
 
-def _grange_cache_load(path: str, total: int,
-                       n_genomes: int) -> Optional[GRangeIndex]:
+def _grange_cache_load(path: str, total: int, n_genomes: int,
+                       span=None) -> Optional[GRangeIndex]:
     """The layout saved under ``path``, or None when its metadata does not
-    describe this database."""
+    describe this database. Under a process span ``(i, n)`` only the grids
+    of the chunks j with j % n == i are read (the others are None: an
+    engine with that span never touches them)."""
     meta = np.load(os.path.join(path, _META))
     if int(meta["m"]) != total or int(meta["n_genomes"]) != n_genomes:
         return None
     n_chunks = int(meta["n_chunks"])
 
     def grids(name):
-        files = [os.path.join(path, f"{name}{i}.npy") for i in range(n_chunks)]
-        return [torch.from_numpy(np.load(f)) for f in files]
+        return [torch.from_numpy(np.load(os.path.join(path, f"{name}{i}.npy")))
+                if span is None or i % span[1] == span[0] else None
+                for i in range(n_chunks)]
     gidx = GRangeIndex(
         grids("keys"), grids("gid"), meta["bases"], meta["edges_u64"],
         int(meta["width"]), int(meta["B"]), int(meta["CI"]),

@@ -235,8 +235,10 @@ def prefilter_candidates(opts, sample, genome_sketches,
     """Candidate genome indices for pass-1, or None when the prefilter
     does not apply (hidden estimators can raise ANI in ways this pass does
     not model, and tiny databases don't need it). The device engine's [G]
-    mask is used when it has one; otherwise its [G, 64] histograms go
-    through the host mask."""
+    mask is used when it has one (the grange regime on one device in one
+    process, sylph_tpu/tpu/grange.py:1525-1540); otherwise its [G, 64]
+    histograms, merged over the processes of a group, go through the host
+    mask."""
     if opts.estimator != "ratio":
         return None
     G = len(genome_sketches)

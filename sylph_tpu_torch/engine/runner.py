@@ -19,6 +19,8 @@ once, then answers one sample request a line of a stream. Under
 resident across ``contain`` calls of one process (a library caller's
 repeated calls), keyed on the ``.syldb`` files' paths, times and sizes.
 ``--profile-trace DIR`` writes a torch.profiler trace of the sample loop.
+In a group of several processes (``--coordinator``) every process runs the
+same call and only process 0 writes (``_secondary_process``).
 """
 
 import logging
@@ -38,6 +40,7 @@ from ..core.sketch_genomes import sketch_genome, sketch_genome_individual
 from ..core.sketch_reads import sketch_pair_sequences, sketch_sequences
 from ..core.types import AniResult, GenomeSketch, SequencesSketch
 from ..gpu.grange import resolve_device
+from ..utils.distributed import process_count, process_index
 from ..io import sylformat
 from ..io.fastx import is_fasta, is_fastq
 from ..stats.contain_stats import StatParams, coverage_stats
@@ -372,7 +375,7 @@ def process_sample(opts: ContainOptions, sample: SequencesSketch,
     # the grange engine serves histograms only, so its exact statistics
     # probe the host; the merge and bucket regimes read their cached
     # device counts (device_engine.genome_covs)
-    host_probe = device_engine is None or device_engine.serves_streams()
+    host_probe = device_engine is None or device_engine.serves_histograms()
 
     def _batchable(genomes):
         # cap the concat: an unfiltered 100k-genome query would
@@ -536,14 +539,33 @@ def _device_engine_for(genome_sketch_files, genome_files, genome_sketches,
     return _ENGINE_CACHE[key]
 
 
+def _secondary_process() -> bool:
+    """True in a process of a group of several processes (``--coordinator``,
+    utils/distributed.py) other than process 0 (runner.py:478-489 of the
+    JAX package). Every process runs the same pipeline: the grange engine
+    splits the chunks and merges the histograms, so every process computes
+    the same rows, and only process 0 writes them."""
+    return process_count() > 1 and process_index() != 0
+
+
 def _open_out(opts: ContainOptions, out: Optional[TextIO]):
-    """(the TSV stream, whether to close it): ``out``, else -o, else
-    stdout."""
+    """(the TSV stream, whether to close it): os.devnull in a secondary
+    process, else ``out``, else -o, else stdout."""
+    if _secondary_process():
+        return open(os.devnull, "w"), True
     if out is not None:
         return out, False
     if opts.out_file_name:
         return open(opts.out_file_name, "w"), True
     return sys.stdout, False
+
+
+def _log_devices(device_engine) -> None:
+    devs = device_engine.devices
+    log.info("Containment runs on %d device(s) (%s)%s.", len(devs),
+             ", ".join(map(str, devs)),
+             f", process {process_index()} of {process_count()}"
+             if process_count() > 1 else "")
 
 
 def _load_database(opts: ContainOptions, need_samples: bool):
@@ -589,7 +611,7 @@ def contain(opts: ContainOptions, pseudotax: bool,
      device, genome_sketches) = _load_database(opts, need_samples=True)
     device_engine = _device_engine_for(genome_sketch_files, genome_files,
                                        genome_sketches, device)
-    log.info("Containment runs on %s.", device_engine.device)
+    _log_devices(device_engine)
 
     out, close_out = _open_out(opts, out)
     print_header(opts.pseudotax, out, opts.estimate_unknown)
@@ -634,7 +656,7 @@ def serve(opts: ContainOptions, pseudotax: bool,
      device, genome_sketches) = _load_database(opts, need_samples=False)
     device_engine = _device_engine_for(genome_sketch_files, genome_files,
                                        genome_sketches, device)
-    log.info("Containment runs on %s.", device_engine.device)
+    _log_devices(device_engine)
     out, close_out = _open_out(opts, out)
     print_header(opts.pseudotax, out, opts.estimate_unknown)
 

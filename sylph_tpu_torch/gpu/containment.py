@@ -1,7 +1,7 @@
 """Merge-regime containment and the flattened host index (counterpart of
 sylph_tpu/tpu/containment.py::merge_join_counts, merge_join_hist,
-compact_rows and _bincount, of the vmapped join of engine/device_exec.py,
-and of tpu/pipeline.py::HostIndex/build_host_index).
+compact_rows and _bincount, of the vmapped and the sharded joins of
+engine/device_exec.py, and of tpu/pipeline.py::HostIndex/build_host_index).
 
 The JAX package joins index and sample with one sort of their union and
 run totals of the sample weights, built from sorts and scans because
@@ -117,6 +117,42 @@ def merge_join_counts_batched(idx_key: torch.Tensor, smp_keys: torch.Tensor,
     check (o))."""
     return torch.stack([merge_join_counts(idx_key, k, w)
                         for k, w in zip(smp_keys, smp_weights)])
+
+
+def shard_index(keys: np.ndarray, devices) -> List[torch.Tensor]:
+    """The [M] index keys cut into len(devices) equal shards, shard d on
+    ``devices[d]`` (the index's ('ip',) sharding of
+    sylph_tpu/engine/device_exec.py:242-281); M must divide evenly."""
+    n = len(devices)
+    if keys.size % n:
+        raise ValueError(f"{keys.size} index slots do not shard evenly over "
+                         f"{n} devices")
+    return [torch.from_numpy(part).to(dev)
+            for part, dev in zip(np.split(keys, n), devices)]
+
+
+def merge_join_counts_sharded(shards: List[torch.Tensor],
+                              smp_key: torch.Tensor,
+                              smp_weights: torch.Tensor) -> np.ndarray:
+    """[M] int32 host counts of the sharded index: each shard joins the
+    same sample table on its own device, and the counts concatenate in
+    shard order, equal to merge_join_counts of the whole index."""
+    outs = [merge_join_counts(sh, smp_key.to(sh.device),
+                              smp_weights.to(sh.device)) for sh in shards]
+    return np.concatenate([o.cpu().numpy() for o in outs])
+
+
+def merge_join_counts_sharded_batched(shards: List[torch.Tensor],
+                                      smp_keys: torch.Tensor,
+                                      smp_weights: torch.Tensor
+                                      ) -> np.ndarray:
+    """[S, M] int32 host counts of [S, T] sample tables against the
+    sharded index (the batched form, device_exec.py:272-277): per shard
+    merge_join_counts_batched on its device, concatenated along M."""
+    outs = [merge_join_counts_batched(sh, smp_keys.to(sh.device),
+                                      smp_weights.to(sh.device))
+            for sh in shards]
+    return np.concatenate([o.cpu().numpy() for o in outs], axis=1)
 
 
 def merge_join_hist(idx_key: torch.Tensor, gids: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Global-range bucketed join: database-scale containment on one GPU
-(counterpart of sylph_tpu/tpu/grange.py).
+"""Global-range bucketed join: database-scale containment on one or several
+GPUs, in one or several processes (counterpart of sylph_tpu/tpu/grange.py).
 
   build (host, once per database):
     all index k-mers are sorted by hash GLOBALLY (torch.sort on the engine's
@@ -30,6 +30,18 @@
     one repack chain and, at the end, one bincount over S*G*64 bins. A
     batch that fails its conservation check is swept again per sample.
 
+  several devices and processes (sylph_tpu/tpu/grange.py:1032-1095):
+    chunk i lives on ``devices[i % n]`` (resident or streamed alike) and its
+    kernels launch there, on the sample slice moved to that device; each
+    device's conservation checks come back in one fetch and its good code
+    streams go through one bincount, and the host sums the devices'
+    histograms. With ``process_span=(i, n)`` the engine owns only the
+    chunks j with j % n == i and ``hists`` returns this process's partial
+    histogram (spill accounted by process 0 only); ``merge_process_hists``
+    sums the partials over the process group. The streamed device view,
+    the device mask and the batched sweeps are one-device paths, as in the
+    JAX package: on several devices or under a span they are not taken.
+
 The CUDA path is fixed (fill, fused compact codes, repack); the JAX
 package's TPU switches are gone and their defaults are module constants.
 """
@@ -41,6 +53,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.distributed import allreduce_sum
 from .bucket_fill import bucket_fill, repack1_flat
 from .bucket_join import (_cell_ids, block_rows, cell_cs, join_codes,
                           join_codes_batched, join_codes_compact,
@@ -535,23 +548,39 @@ def _quantize_p(want: float, t=None) -> int:
 class GRangeEngine:
     """Device-resident grange index serving per-sample [G, H] histograms.
 
-    ``max_resident_chunks`` bounds device residency for databases larger
-    than device memory: the first N chunks stay resident, the rest upload
-    per sample (the next chunk's upload is issued before the current
-    chunk's kernels). None = everything resident."""
+    ``devices`` (default: the one ``device``) holds the chunks round-robin,
+    chunk i on ``devices[i % len(devices)]``; a list may name one device
+    more than once (logical devices sharing a card). ``max_resident_chunks``
+    bounds device residency for databases larger than device memory: of
+    chunks 0..N-1, those this engine owns stay resident, and every other
+    owned chunk uploads per sample (the next chunk's upload is issued before the current
+    chunk's kernels). None = everything resident. ``process_span=(i, n)``
+    makes this engine own only the chunks j with j % n == i (one process
+    of n); ``hists`` then returns this process's partial histogram."""
 
     def __init__(self, gidx: GRangeIndex, device="cuda",
-                 max_resident_chunks: Optional[int] = None):
+                 max_resident_chunks: Optional[int] = None, devices=None,
+                 process_span: Optional[Tuple[int, int]] = None):
         self.gidx = gidx
         self._GE = gidx.g_eff       # code-space genomes (real + markers)
-        self.device = resolve_device(device)
+        self.devices = [resolve_device(d) for d in (
+            devices if devices is not None else [device])]
+        if not self.devices:
+            raise ValueError("a grange engine needs at least one device")
+        self.device = self.devices[0]
+        if process_span is not None:
+            pid, npr = process_span
+            if not 0 <= pid < npr:
+                raise ValueError(f"bad process span {process_span}")
+        self._span = process_span
         n_chunks = len(gidx.chunk_keys)
         n_res = (n_chunks if max_resident_chunks is None
                  else max(0, min(max_resident_chunks, n_chunks)))
-        self._dev_chunks = {i: self._upload(i) for i in range(n_res)}
-        # (first, last) hash of every chunk as u64_order keys, resident
-        # with the chunks: searchsorted of a device-sorted sample compares
-        # in that order
+        self._dev_chunks = {i: self._upload(i) for i in range(n_res)
+                            if self._owns(i)}
+        # (first, last) hash of every chunk as u64_order keys, on the first
+        # device: searchsorted of a device-sorted sample (a one-device
+        # path) compares in that order
         e = np.ascontiguousarray(gidx.edges_u64, np.uint64).view(np.int64)
         self._edges = u64_order(torch.from_numpy(e)).to(self.device)
         # sweeps of the index: per-sample (hists), batched (hists_batched)
@@ -562,15 +591,43 @@ class GRangeEngine:
                          "batched_rejected": 0, "device_view_sorts": 0,
                          "mask_stream_masks": 0, "mask_stream_rejected": 0}
 
+    def _owns(self, i: int) -> bool:
+        """Chunk ownership: every chunk, or under a process span the
+        round-robin subset j % n == i."""
+        return self._span is None or i % self._span[1] == self._span[0]
+
+    def _owns_sides(self) -> bool:
+        """The spill side channel: exactly one process accounts it."""
+        return self._span is None or self._span[0] == 0
+
+    def _one_device(self) -> bool:
+        """The one-device, one-process engine: the only one that takes the
+        streamed device view, the device mask and the batched sweeps (JAX's
+        gates, sylph_tpu/engine/device_exec.py:321-323, 438-439, 456-457;
+        DeviceContainment asks its engine)."""
+        return len(self.devices) == 1 and self._span is None
+
+    def _chunk_device(self, i: int) -> torch.device:
+        return self.devices[i % len(self.devices)]
+
     def _upload(self, i: int):
         g = self.gidx
-        return (g.chunk_keys[i].to(self.device, non_blocking=True),
-                g.chunk_gid[i].to(self.device, non_blocking=True))
+        dev = self._chunk_device(i)
+        return (g.chunk_keys[i].to(dev, non_blocking=True),
+                g.chunk_gid[i].to(dev, non_blocking=True))
 
     def _chunk_dev(self, i: int):
-        """Device tensors for chunk i: resident, or a per-use upload."""
+        """Device tensors for chunk i on its device: resident, or a
+        per-use upload."""
         hit = self._dev_chunks.get(i)
         return hit if hit is not None else self._upload(i)
+
+    def _require_one_device(self, what: str) -> None:
+        if not self._one_device():
+            raise RuntimeError(
+                f"{what} sweeps every chunk on one device; an engine on "
+                f"{len(self.devices)} device(s) with process span "
+                f"{self._span} serves hists() (and merge_process_hists)")
 
     def heavy_expand(self, hh: np.ndarray) -> np.ndarray:
         """[n_heavy, H] marker-row counts -> [G, H] real-genome counts."""
@@ -642,14 +699,17 @@ class GRangeEngine:
         density = min(1.0, 4.0 * P / max(1, gidx.B * gidx.CI))
         return slices, P, CS, density
 
-    def upload_sample(self, skmers_u64: np.ndarray, scounts: np.ndarray):
-        """(int64 keys, uint8 weights) of a sorted sample on the engine's
-        device. Weights clamp at H-1 losslessly (histogram bins clamp
-        there), so they cross to the device as uint8."""
+    def upload_sample(self, skmers_u64: np.ndarray, scounts: np.ndarray,
+                      device: Optional[torch.device] = None):
+        """(int64 keys, uint8 weights) of a sorted sample on ``device``
+        (default: the engine's first device). Weights clamp at H-1
+        losslessly (histogram bins clamp there), so they cross to the
+        device as uint8."""
+        dev = self.device if device is None else device
         skey = torch.from_numpy(np.ascontiguousarray(
-            skmers_u64, np.uint64).view(np.int64)).to(self.device)
+            skmers_u64, np.uint64).view(np.int64)).to(dev)
         sw = torch.from_numpy(np.minimum(scounts, HIST_H - 1).astype(
-            np.uint8)).to(self.device)
+            np.uint8)).to(dev)
         return skey, sw
 
     # ---- the streamed device-resident sample --------------------------
@@ -703,6 +763,7 @@ class GRangeEngine:
         (``n_matches``, else twice the sample), not from the measured
         slices, so no fetch gates the dispatch; a violation shows in the
         probe and callers take the per-chunk path instead."""
+        self._require_one_device("hist_device_stream")
         if w_dev is None:
             skey, w_dev = fold_stream(skey)
         gidx = self.gidx
@@ -755,7 +816,8 @@ class GRangeEngine:
         None when the index has heavy runs (their marker bins expand on
         the host) or the probe shows a capacity violation (callers then
         take hists(device_view=...))."""
-        if self.gidx.n_heavy or device_view is None:
+        if self.gidx.n_heavy or device_view is None or \
+                not self._one_device():
             return None
         G, H = self._GE, HIST_H
         skey, w = self._sorted_device_sample(device_view)
@@ -845,6 +907,7 @@ class GRangeEngine:
         slice); the histograms are exact iff probe[0] == 0 and probe[1] <=
         P. The port's bincount is exact, so the JAX probe's runs_cap leg
         has no counterpart."""
+        self._require_one_device("hist_device_stream_batched")
         gidx = self.gidx
         G = self._GE
         S, T = keys.shape
@@ -879,6 +942,7 @@ class GRangeEngine:
         1386-1422). Each row is folded (heavy-run markers) and gets its
         spill probe; a batch that fails its conservation check falls back
         to per-sample sweeps, which are exact on their own."""
+        self._require_one_device("hists_batched")
         self.counters["batched_sweeps"] += 1
         keys, w, n_live = self.upload_tables(tables)
         hist, probe, P = self.hist_device_stream_batched(keys, w, n_live)
@@ -901,19 +965,24 @@ class GRangeEngine:
               scounts: Optional[np.ndarray], mask_fn=None,
               device_view=None, table_fn=None) -> np.ndarray:
         """[G, HIST_H] exact (clamped) per-genome multiplicity histograms
-        of a sorted, unique (kmers, counts) sample table.
+        of a sorted, unique (kmers, counts) sample table: of every chunk,
+        or under a process span of the chunks this process owns (the spill
+        list then counts in process 0 only).
 
         ``mask_fn`` (device [G*H] histogram -> device [G] bool) skips the
-        [G, H] fetch for the prefilter: when every chunk passed its
-        conservation check and the index has no heavy runs, only the [G]
-        mask comes back (callers detect it by ndim). The mask covers grid
-        counts only; spill hits are the caller's to OR in.
+        [G, H] fetch for the prefilter: when the engine has one device and
+        no span, every chunk passed its conservation check and the index
+        has no heavy runs, only the [G] mask comes back (callers detect it
+        by ndim). The mask covers grid counts only; spill hits are the
+        caller's to OR in.
 
-        With a ``device_view`` (a streamed device-resident sample) the
-        device sorts and slices the sample; the host table is needed only
-        for the spill side channel, so callers may pass None and a
-        ``table_fn`` returning (sorted_kmers_u64, counts) on demand, which
-        lets the host sort overlap the device sweep."""
+        With a ``device_view`` (a streamed device-resident sample) on a
+        one-device engine the device sorts and slices the sample; the host
+        table is needed only for the spill side channel, so callers may
+        pass None and a ``table_fn`` returning (sorted_kmers_u64, counts)
+        on demand, which lets the host sort overlap the device sweep. On
+        several devices the host table is sliced and each chunk's slice
+        goes to the chunk's device, as the JAX package does."""
         gidx = self.gidx
         G, H = self._GE, HIST_H
         self.counters["hists_sweeps"] += 1
@@ -925,46 +994,65 @@ class GRangeEngine:
             return tbl[0], tbl[1]
 
         t0 = time.perf_counter()
-        if device_view is not None:
+        smp_on = {}             # device -> the sample's (keys, weights)
+        if device_view is not None and len(self.devices) == 1:
             skey, sw = self._sorted_device_sample(device_view)
             slices, P, CS, density = self._plan_slices(
                 self._device_view_slices(skey))
+            smp_on[self.device] = (skey, sw)
         else:
             sk = np.ascontiguousarray(_tbl()[0], np.uint64)
             slices, P, CS, density = self.plan(sk)
-            skey, sw = self.upload_sample(sk, _tbl()[1])
+            device_view = None
+
+        def sample_on(dev):
+            if dev not in smp_on:
+                smp_on[dev] = self.upload_sample(sk, _tbl()[1], device=dev)
+            return smp_on[dev]
         log.debug("[timing] grange hists: sample sort + slices %.3f s "
                   "(%s)", time.perf_counter() - t0,
                   "device" if device_view is not None else "host")
 
         t0 = time.perf_counter()
-        parts = []          # (codes, |nl-nc| + w_lost, nl, (i, smp))
-        n_chunks = len(slices)
-        nxt = self._chunk_dev(0) if n_chunks else None
-        for i in range(n_chunks):
+        parts = []    # (device index, codes, |nl-nc| + w_lost, nl, (i, smp))
+        owned = [i for i in range(len(slices)) if self._owns(i)]
+        nxt = self._chunk_dev(owned[0]) if owned else None
+        for oi, i in enumerate(owned):
             s, e = slices[i]
             cur = nxt
-            nxt = self._chunk_dev(i + 1) if i + 1 < n_chunks else None
-            smp = _pad_slice(skey, sw, s, e, P)
+            nxt = (self._chunk_dev(owned[oi + 1]) if oi + 1 < len(owned)
+                   else None)
+            di = i % len(self.devices)
+            smp = _pad_slice(*sample_on(self.devices[di]), s, e, P)
             ikey, gidg = cur
             cod, nl, nc, wlost = _chunk_codes(
                 ikey, gidg, *smp, int(gidx.bases[i]), width=gidx.width,
                 B=gidx.B, CS=CS, n_genomes=G, density=density, nt=gidx.nt,
                 subwidth=gidx.subwidth, ov=gidx.ov)
-            parts.append((cod, (nl - nc).abs() + wlost, nl, (i, smp)))
-        # one small fetch for every chunk's conservation check (the true
-        # live counts ride along: they size the final re-compaction)
-        fetched = (torch.stack([torch.stack((d, nl)) for _, d, nl, _
-                                in parts]).cpu().numpy()
-                   if parts else np.zeros((0, 2), np.int64))
-        bad = {idx for idx, (dv, _nl) in enumerate(fetched) if dv != 0}
-        good = [parts[idx][0] for idx in range(len(parts))
-                if idx not in bad]
-        live_total = int(sum(fetched[idx][1] for idx in range(len(parts))
-                             if idx not in bad))
+            parts.append((di, cod, (nl - nc).abs() + wlost, nl, (i, smp)))
+        # one small fetch per device for its chunks' conservation checks
+        # (the true live counts ride along: they size the final
+        # re-compaction)
+        by_dev = {}
+        for j, p in enumerate(parts):
+            by_dev.setdefault(p[0], []).append(j)
+        bad, live = set(), {}
+        for js in by_dev.values():
+            fetched = torch.stack([torch.stack(parts[j][2:4])
+                                   for j in js]).cpu().numpy()
+            for j, (dv, nlv) in zip(js, fetched):
+                live[j] = int(nlv)
+                if dv != 0:
+                    bad.add(j)
+        codes_by_dev = {}
+        for j, p in enumerate(parts):
+            if j not in bad:
+                codes_by_dev.setdefault(p[0], []).append(p[1])
+        live_total = sum(v for j, v in live.items() if j not in bad)
         t1 = time.perf_counter()
-        log.debug("[timing] grange hists: %d chunks dispatch+sync %.3f s, "
-                  "%d failed conservation", n_chunks, t1 - t0, len(bad))
+        log.debug("[timing] grange hists: %d chunks on %d device(s) "
+                  "dispatch+sync %.3f s, %d failed conservation",
+                  len(owned), len(by_dev), t1 - t0, len(bad))
 
         def _recompact(cc):
             """The per-chunk streams are sized by a conservative 4*P
@@ -980,28 +1068,45 @@ class GRangeEngine:
             n2 = int((cc2 != SENT).sum())
             return cc2 if n2 == live_total else cc
 
-        if mask_fn is not None and not bad and gidx.n_heavy == 0:
-            if not good:
+        if mask_fn is not None and not bad and gidx.n_heavy == 0 \
+                and self._one_device():
+            if not codes_by_dev:
                 return np.zeros(gidx.n_genomes, bool)
+            (good,) = codes_by_dev.values()
             cc = _recompact(torch.cat(good) if len(good) > 1 else good[0])
             h_dev = hist_from_codes(cc, n_genomes=G)
             return mask_fn(h_dev[:G * H]).cpu().numpy()
+        # one bincount per device over its good code streams, summed here
         hist = np.zeros(G * H + 1, np.int64)
-        if good:
-            cc = _recompact(torch.cat(good) if len(good) > 1 else good[0])
+        for good in codes_by_dev.values():
+            cc = torch.cat(good) if len(good) > 1 else good[0]
+            if len(codes_by_dev) == 1:
+                cc = _recompact(cc)
             hist += hist_from_codes(cc, n_genomes=G).cpu().numpy()
-        for idx in sorted(bad):
+        for j in sorted(bad):
             # compaction or cell-capacity overflow: lossless redo at 4x
-            # the sample capacity
-            ci, smp = parts[idx][3]
+            # the sample capacity, on the chunk's own device
+            ci, smp = parts[j][4]
             ikey, gidg = self._chunk_dev(ci)
             h = _chunk_hist_lossless(
                 ikey, gidg, *smp, int(gidx.bases[ci]), width=gidx.width,
                 B=gidx.B, CS=4 * CS, n_genomes=G)
             hist += h.cpu().numpy()
         out = self._fold_heavy(hist)
-        if gidx.spill_kmers.size:
+        if gidx.spill_kmers.size and self._owns_sides():
             out += self._spill_hist(*_tbl())
         log.debug("[timing] grange hists: hist fetch+fold %.3f s",
                   time.perf_counter() - t1)
         return out
+
+    # this process's partial histogram under a span, by the name of the
+    # multi-process call site (sylph_tpu/tpu/grange.py:1470); sum the
+    # processes' partials with ``merge_process_hists``
+    partial_hists = hists
+
+
+def merge_process_hists(partial: np.ndarray) -> np.ndarray:
+    """The sum of every process's partial grange histogram ([G, 64] int64,
+    from ``partial_hists``), summed over the process group on the host
+    (sylph_tpu/tpu/grange.py:1731-1745); the identity outside a group."""
+    return allreduce_sum(partial)

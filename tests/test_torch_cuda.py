@@ -1445,3 +1445,65 @@ def test_c1_regimes_on_card_give_one_tsv(cuda, tmp_path, monkeypatch):
     assert {r.split("\t")[1] for r in want.splitlines()[1:]} == planted
     for key, got in tsv.items():
         assert got == want, key
+
+
+# ---- several devices: two logical devices sharing the card -----------------
+
+def test_grange_two_devices_match_plain(cuda):
+    """The grange dry run's world (heavy runs, forced spill) on [cuda:0,
+    cuda:0]: chunks round-robin over the two devices, a conservation fetch
+    and a bincount a device; equal to the engine's plain-kernel CPU run and
+    to the numpy oracle, and two process spans on the card sum to it. B1
+    and the compare launch once a chunk."""
+    from sylph_tpu_torch import multichip
+    kmers, gids, sk, sc = multichip.grange_world(1 << 14, 4)
+    idx = gr.build_grange_index(kmers, gids, 40, chunk_slots=1 << 14,
+                                device=cuda, **multichip.GRANGE_BUILD)
+    assert idx.n_heavy > 0 and idx.spill_kmers.size > 0
+    two = [torch.device("cuda", 0)] * 2
+    want = gr.GRangeEngine(idx, device="cpu").hists(sk, sc)
+    np.testing.assert_array_equal(
+        want, multichip.oracle_hists(kmers, gids, 40, sk, sc))
+    n0 = dict(bj._cuda.LAUNCHES)
+    got = gr.GRangeEngine(idx, devices=two).hists(sk, sc)
+    np.testing.assert_array_equal(got, want)
+    d = {k: bj._cuda.LAUNCHES[k] - n0[k] for k in n0}
+    n = len(idx.chunk_keys)
+    assert d["B1_fill"] == n
+    assert d["B2_join_codes_compact"] + d["B4_join_codes"] == n
+    parts = [gr.GRangeEngine(idx, devices=two, process_span=(i, 2)).hists(
+        sk, sc) for i in range(2)]
+    np.testing.assert_array_equal(parts[0] + parts[1], want)
+
+
+def test_sharded_merge_join_two_devices_matches_plain(cuda):
+    """DeviceContainment on [cuda:0, cuda:0] below GRANGE_MIN: the index in
+    two shards on the card, counts (one sample and a batched prefetch)
+    equal to the one-device CPU engine's."""
+    from sylph_tpu_torch.core.types import GenomeSketch, SequencesSketch
+    from sylph_tpu_torch.engine.device_exec import DeviceContainment
+    rng = np.random.default_rng(7)
+    pool = rng.integers(0, 1 << 62, size=40_000, dtype=np.uint64)
+    genomes = [GenomeSketch(rng.choice(pool, size=3000, replace=False),
+                            None, f"g{g}", f"c{g}", 100, 31, 300_000, 30)
+               for g in range(24)]
+    samples = []
+    for s in range(3):
+        skm = np.unique(rng.choice(pool, size=9000 + 1000 * s))
+        samples.append(SequencesSketch(
+            skm, rng.integers(1, 9, size=skm.size).astype(np.uint32), 100,
+            31, f"s{s}"))
+    one = DeviceContainment(genomes, device="cpu")
+    sh = DeviceContainment(genomes, devices=[torch.device("cuda", 0)] * 2)
+    assert sh._shards is not None and all(
+        t.device.type == "cuda" for t in sh._shards)
+    got = sh._counts(samples[0])
+    want = one._counts(samples[0])
+    n = min(got.size, want.size)
+    np.testing.assert_array_equal(got[:n], want[:n])
+    assert not got[n:].any() and not want[n:].any()
+    sh.prefetch(samples[1:])
+    assert sh.counters == {"batched_joins": 1, "sharded_joins": 2}
+    for s in samples[1:]:
+        g, w = sh._counts(s), one._counts(s)
+        np.testing.assert_array_equal(g[:n], w[:n])
