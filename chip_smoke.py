@@ -182,6 +182,23 @@ and drives the port's main path once, at database scale:
      index), then one NCCL rank; every rank's histogram equals (q)'s, its
      statistics (q)'s within rtol 1e-5, and B6 and B8 launch in every rank.
 
+ 10. (ac) The port's bench (``sylph_tpu_torch/bench.py``) through its own
+     functions, each config with the launch counts set to 0 just before it
+     and BENCH_REPS timed runs: ``gtdb`` at full width (its index made on
+     the card by gpu/synth_index.py, 100,000 genomes x 7,168 k-mers in 22
+     chunks of [32768, 1152]; chunk 0 and the last equal to the host
+     replay and the live slots to m; 64 batches of [65,536, 256] planted
+     reads; the last timed run's histogram equal to a searchsorted oracle
+     of its folded sample against every live index key, every run's probe
+     exact); ``gtdb --dup`` (the markers' expansion ok in every run);
+     ``gtdb --samples 4`` (each batched row equal to the sample's own
+     sweep); ``profile``, ``sketch``, ``multisample``; ``entry()`` (its
+     histogram equal to its plain run on the CPU, statistics within rtol
+     1e-5); ``gtdb_cli`` on (3)'s db.syldb and reads.fastq.gz from (3)'s
+     saved layout, and ``sketchdb`` on (i)'s assemblies (cuts listed under
+     ``reduced``; ``e2e`` is not run). Each config's JSON line is printed
+     with its stage split and launches.
+
 Any failed check raises and the script exits non-zero. The last lines are
 the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -193,7 +210,6 @@ import json
 import logging
 import os
 import shutil
-import subprocess
 import sys
 import time
 
@@ -294,13 +310,6 @@ def _parse(argv):
 
 def _fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
-
-
-def _smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
 
 
 class _Stages(logging.Handler):
@@ -550,32 +559,44 @@ def _main_path(db, reads, sketches, work):
 
 def _oracle_hist(genomes, sk, sc, device, H=64):
     """[G, H] exact histograms by searchsorted of every index k-mer into
-    the sorted sample (tests/test_grange.py's oracle, on the card), both
-    sides in uint64 order (as int64 bits xor 2^63: at c = 1 a hash can be
-    2^63 or more). ``genomes`` holds GenomeSketches or plain k-mer
-    arrays."""
+    the sorted sample (tests/test_grange.py's oracle, on the card).
+    ``genomes`` holds GenomeSketches or plain k-mer arrays."""
     import torch
-    G = len(genomes)
-    flip = np.uint64(1 << 63)
     kmers = [getattr(g, "genome_kmers", g) for g in genomes]
+
+    def blocks(step=8192):
+        for g0 in range(0, len(kmers), step):
+            blk = kmers[g0:g0 + step]
+            k = torch.from_numpy(np.concatenate(blk).view(np.int64)).to(
+                device)
+            sizes = torch.tensor([a.size for a in blk], device=device)
+            yield k, torch.repeat_interleave(
+                torch.arange(g0, g0 + len(blk), device=device), sizes)
+    return _oracle_blocks(blocks(), sk, sc, len(genomes), device, H)
+
+
+def _oracle_blocks(blocks, sk, sc, G, device, H=64):
+    """[G, H] exact histograms of (index keys, genome ids) blocks (int64
+    bit patterns of the uint64 hashes, on ``device``) against the sorted
+    sample (uint64 ``sk``, counts ``sc``): a searchsorted a block, both
+    sides in uint64 order (the bits xor 2^63: at c = 1 a hash can be 2^63
+    or more)."""
+    import torch
+    flip = np.uint64(1 << 63)
     skd = torch.from_numpy((sk ^ flip).view(np.int64)).to(device)
     scd = torch.from_numpy(sc.astype(np.int64)).to(device)
     n = skd.numel()
     hist = torch.zeros(G * H, dtype=torch.int64, device=device)
-    step = 8192
-    for g0 in range(0, G, step):
-        blk = kmers[g0:g0 + step]
-        k = torch.from_numpy((np.concatenate(blk) ^ flip).view(
-            np.int64)).to(device)
-        sizes = torch.tensor([a.size for a in blk], device=device)
-        gid = torch.repeat_interleave(
-            torch.arange(g0, g0 + len(blk), device=device), sizes)
+    for k, gid in blocks:
+        k = k ^ -(1 << 63)
         idx = torch.searchsorted(skd, k)
         idxc = idx.clamp(max=max(n - 1, 0))
         cnt = torch.where((idx < n) & (skd[idxc] == k), scd[idxc], 0)
         live = cnt > 0
-        hist += torch.bincount(gid[live] * H + cnt[live].clamp(max=H - 1),
+        hist += torch.bincount(gid[live].to(torch.int64) * H
+                               + cnt[live].clamp(max=H - 1),
                                minlength=G * H)
+        del k, idx, idxc, cnt, live
     return hist.view(G, H).cpu().numpy()
 
 
@@ -2259,6 +2280,16 @@ def _kbench_phase(record):
     for r in rows:
         print("kbench " + kbench.format_row(r))
     print(json.dumps({"kbench": rows}))
+    # the identity and its library copy both take under 0.05 ms, where
+    # CUDA events mostly time the host: their profiler device times too
+    import torch
+    x = torch.randint(-(1 << 31), 1 << 31, (kbench.N, kbench.L),
+                      dtype=torch.int32, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    ident = dict(profiler_ms=_cuda.device_ms(
+        lambda: kbench.launch("identity", x), "kb_identity"),
+        library_profiler_ms=_cuda.device_ms_all(lambda: x.clone()))
+    del x
     for r in rows:
         if r["kernel"] is None:
             continue
@@ -2267,7 +2298,8 @@ def _kbench_phase(record):
         # kbench counts its chains' instructions as the ALU pipe's
         record(r["name"], "kbench.cu", r["replaces"], 0.0, r["ms"],
                r["plain_ms"], r["nbytes"], _sm_clocks(alu=r["ops"]),
-               library_ms=r["library_ms"], n_launches=launches[r["kernel"]])
+               library_ms=r["library_ms"], n_launches=launches[r["kernel"]],
+               **(ident if r["kernel"] == "kbench_identity" else {}))
     print(f"check (u): {sum(r['kernel'] is not None for r in rows)} "
           "microkernels and the real kernels bit-identical to their plain "
           "versions")
@@ -3053,6 +3085,196 @@ def _step_phase(work, step_dir, q_ref):
     print("sharded step (ab), ranks sharing one H100: " + json.dumps(out))
 
 
+# ---- (ac): the port's bench (sylph_tpu_torch/bench.py) --------------------
+
+BENCH_REPS = 2                 # timed reps a config (the bench takes 5-7)
+BENCH_SAMPLES = 4              # gtdb --samples
+
+
+def _launched():
+    from sylph_tpu_torch.gpu import _cuda
+    return {k: v for k, v in _cuda.LAUNCHES.items() if v}
+
+
+def _gtdb_oracle(gidx, stream, G: int):
+    """[G, 64] histograms of the sample stream, folded on the host
+    (np.unique), against every live key of the index on the card."""
+    flat = stream.reshape(-1).cpu().numpy()
+    sk, sc = np.unique(flat[flat != -1].view(np.uint64), return_counts=True)
+
+    def blocks():
+        for keys, gid in zip(gidx.chunk_keys, gidx.chunk_gid):
+            k = keys.reshape(-1)
+            live = k != -1
+            yield k[live], gid.reshape(-1)[live]
+    return _oracle_blocks(blocks(), sk, sc, G, stream.device)
+
+
+def _gtdb_device_time(run_once, reps: int = 3):
+    """One timed gtdb run's wall ms, and its device ms by torch.profiler
+    over ``reps`` runs: all device activity, and the ten names that take
+    the most (ms and launches a run)."""
+    from torch.autograd import DeviceType
+
+    from sylph_tpu_torch.gpu import _cuda
+    t0 = time.perf_counter()
+    run_once()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in _cuda._profile(run_once, reps)
+          if e.device_type == DeviceType.CUDA]
+    total = sum(_cuda._device_us(e) for e in ev) / reps / 1e3
+    if not total:
+        _fail("(ac) the profiler recorded no device time for a gtdb run")
+    top = sorted(ev, key=_cuda._device_us, reverse=True)[:10]
+    return dict(wall_ms=wall_ms, device_ms=total, profiled_runs=reps,
+                top=[dict(name=e.key[:80],
+                          ms=_cuda._device_us(e) / reps / 1e3,
+                          launches=e.count / reps) for e in top])
+
+
+def _bench_gtdb_checks(info, G: int, KPG: int):
+    """(ac)'s checks of a gtdb run: the index's first and last chunks equal
+    the host replay, its live slots its m; the last timed run's [G, 64]
+    histogram equals the oracle."""
+    from sylph_tpu_torch.gpu import synth_index as si
+    gidx = info["index"]
+    n = len(gidx.chunk_keys)
+    if (n, gidx.B, gidx.CI) != (22, 32768, 1152):
+        _fail(f"(ac) synthetic index of {n} chunks of [{gidx.B}, "
+              f"{gidx.CI}], not 22 of [32768, 1152]")
+    t0 = time.perf_counter()
+    replay = si.synth_chunks_host(G, KPG, C, nt=gidx.nt, chunks=[0, n - 1])
+    replay_s = time.perf_counter() - t0
+    for i, (hk, hg) in zip((0, n - 1), replay):
+        if not (np.array_equal(gidx.chunk_keys[i].cpu().numpy(), hk) and
+                np.array_equal(gidx.chunk_gid[i].cpu().numpy(), hg)):
+            _fail(f"(ac) synthetic chunk {i} differs from its host replay")
+    live = sum(int((k != -1).sum()) for k in gidx.chunk_keys)
+    if live != gidx.m:
+        _fail(f"(ac) {live} live slots on the card, m = {gidx.m}")
+    t0 = time.perf_counter()
+    want = _gtdb_oracle(gidx, info["stream"], G)
+    got = info["hist"][:G * 64].reshape(G, 64).cpu().numpy()
+    if not np.array_equal(got, want):
+        _fail(f"(ac) gtdb [G, 64] histogram differs from the oracle in "
+              f"{int((got != want).sum())} bins")
+    if int(want[:, 1:].sum()) == 0:
+        _fail("(ac) gtdb matched nothing")
+    return dict(replay_s=replay_s, oracle_s=time.perf_counter() - t0,
+                live_slots=live, hits=int(want.sum()))
+
+
+def _bench_phase(work, db, reads, n_bases, layout, asm_paths):
+    """(ac): the port's bench through its own functions, each config with
+    the launch counts set to 0 just before it, BENCH_REPS timed reps: gtdb
+    (the index made on the card: 22 chunks of [32768, 1152]; chunk 0 and
+    the last equal to the host replay, the live count to m; the last timed
+    run's histogram equal to a searchsorted oracle of its sample folded on
+    the host; every run's probe exact; one run's wall and device time), gtdb --dup (the expansion's ok and the probe
+    in every run), gtdb --samples 4 (each batched row equal to its own
+    sweep), profile, sketch, multisample, entry() (its histogram equal to
+    its plain run on the CPU), gtdb_cli on (3)'s db.syldb and
+    reads.fastq.gz with (3)'s saved layout, sketchdb on (i)'s assemblies.
+    Prints each config's JSON line, stage split and launches."""
+    import torch
+
+    from sylph_tpu_torch import bench as tb
+    from sylph_tpu_torch.gpu import _cuda
+    from sylph_tpu_torch.gpu import synth_index as si
+    from sylph_tpu_torch.multichip import entry
+
+    dev = torch.device("cuda")
+    G, KPG = 100_000, 7168
+    out = {}
+
+    def run(name, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(wall_s=time.perf_counter() - t0,
+                         launches=_launched())
+        return res
+
+    gbps, info = run("gtdb", lambda: tb._bench_gtdb(
+        G, KPG, device=dev, reps=BENCH_REPS))
+    for k in ("B1_fill", "B3_repack", "B6_seed_pack", "B8_repack2"):
+        if out["gtdb"]["launches"].get(k, 0) < 1:
+            _fail(f"(ac) gtdb: {k} not launched: {out['gtdb']['launches']}")
+    out["gtdb"].update(line=tb.result_line("gtdb_profile_throughput", gbps),
+                       **{k: info[k] for k in (
+                           "synth_s", "plants_s", "upload_s", "warmup_s",
+                           "median_s", "n_live", "n_unique", "n_matches")},
+                       **_bench_gtdb_checks(info, G, KPG))
+    out["gtdb"]["run_time"] = _gtdb_device_time(info["run_once"])
+    del info
+    gbps, info = run("gtdb_dup", lambda: tb._bench_gtdb(
+        G, KPG, device=dev, dup=si.DupSpec(), reps=BENCH_REPS))
+    out["gtdb_dup"].update(
+        line=tb.result_line("gtdb_profile_throughput_dupskew", gbps),
+        n_heavy=info["index"].n_heavy, chunks=len(info["index"].chunk_keys),
+        **{k: info[k] for k in ("synth_s", "plants_s", "warmup_s",
+                                "median_s", "n_matches")})
+    del info
+    gbps, info = run("gtdb_samples", lambda: tb._bench_gtdb(
+        G, KPG, device=dev, n_samples=BENCH_SAMPLES,
+        batched_reps=BENCH_REPS))
+    eng, seed_all = info["engine"], info["seed_all"]
+    rows = torch.cat(info["hists"])
+    ge = eng.gidx.g_eff * 64
+    for s in range(BENCH_SAMPLES):
+        h, probe, P = eng.hist_device_stream(seed_all(s))
+        if int(probe[0]) != 0 or int(probe[1]) > P:
+            _fail(f"(ac) samples: sample {s}'s own sweep is not exact")
+        if not torch.equal(rows[s], h[:ge]):
+            _fail(f"(ac) samples: sample {s}'s batched row differs from its "
+                  f"own sweep in {int((rows[s] != h[:ge]).sum())} bins")
+    out["gtdb_samples"].update(
+        line=tb.result_line("gtdb_profile_throughput", gbps),
+        **{k: info[k] for k in ("synth_s", "plants_s", "warmup_s",
+                                "median_s")})
+    del info, eng, seed_all, rows, h
+    bases, lengths, idx_dev = tb._profile_inputs(dev)
+    out["profile"] = {"line": tb.result_line("profile_throughput", run(
+        "profile", lambda: tb._bench_profile(bases, lengths, idx_dev, dev,
+                                             reps=BENCH_REPS)))}
+    out["sketch"] = {"line": tb.result_line("sketch_throughput", run(
+        "sketch", lambda: tb._bench_sketch_only(bases, lengths, dev)))}
+    sps = run("multisample", lambda: tb._bench_multisample(
+        bases, lengths, idx_dev, dev))
+    out["multisample"] = {"line": json.dumps({
+        "metric": "multisample_containment", "value": round(sps, 3),
+        "unit": "samples/s", "vs_baseline": None})}
+    del bases, lengths, idx_dev
+    fn, args = entry()
+    h, ani, cov = run("entry", lambda: fn(*args))
+    fc, ac = entry(device="cpu")
+    hc, anic, covc = fc(*ac)
+    if not torch.equal(h.cpu(), hc) or int(hc[:, 1:].sum()) == 0:
+        _fail("(ac) entry(): the card's histogram differs from the plain "
+              "run's")
+    np.testing.assert_allclose(ani.cpu().numpy(), anic.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(cov.cpu().numpy(), covc.numpy(), rtol=1e-5)
+    out["gtdb_cli"] = {"line": tb.result_line(
+        "gtdb_cli_file_to_tsv_throughput", run("gtdb_cli", lambda:
+            tb._bench_gtdb_cli(dev, db=db, reads=reads, cache_dir=layout[0],
+                               reps=1, warm=1, total_bp=n_bases)))}
+    out["sketchdb"] = {"line": tb.result_line(
+        "sketch_db_build_throughput", run("sketchdb", lambda:
+            tb._bench_sketchdb(dev, gdir=os.path.join(work, "sketchdb"),
+                               reps=1, paths=asm_paths)), baseline=False)}
+    for name, rec in out.items():
+        if "line" in rec:
+            print(f"bench (ac) {name}: {rec['line']}")
+    print("check (ac): gtdb's synthetic index (22 x [32768, 1152]) == host "
+          "replay at chunks 0 and 21 and its m; gtdb histogram == oracle, "
+          "every probe exact; --dup ok; --samples 4 rows == own sweeps; "
+          "entry() == plain run")
+    print("bench (ac): " + json.dumps(out))
+
+
 def main(argv=None) -> int:
     a = _parse(argv)
     import torch
@@ -3062,7 +3284,7 @@ def main(argv=None) -> int:
         return 2
     from sylph_tpu_torch.gpu import _cuda
 
-    smi = _smi()
+    smi = _cuda.card_line()
     print(smi)
     with open("/proc/meminfo") as f:
         print("host: " + json.dumps(dict(
@@ -3079,6 +3301,15 @@ def main(argv=None) -> int:
         reduced.update(kmers_per_genome=[KMERS_PER_GENOME,
                                          a.kmers_per_genome],
                        index_kmers=GENOMES * a.kmers_per_genome)
+    # (ac) runs each bench config once, on data the script made
+    reduced.update(
+        bench_timed_reps=["5-7 (bench.py)", BENCH_REPS],
+        bench_gtdb_cli="(3)'s db.syldb (uniform random k-mers) and "
+        "reads.fastq.gz (2^30 bases), the layout loaded from (3)'s cache, "
+        "1 warm-up and 1 timed run, in place of bench_fixtures gtdb_cli",
+        bench_sketchdb="(i)'s 256 assemblies (1.05 Gbp), 1 run, in place "
+        "of 107 x 10 Mbp",
+        bench_e2e="not run: its fixture costs minutes of gzip")
     print("reduced: " + json.dumps(reduced))
 
     # generated data (about 9 GB), removed at the end
@@ -3147,7 +3378,9 @@ def main(argv=None) -> int:
                     merge_tsvs[0], cohort_o)),
                 ("aa", lambda: _process_phase(work, db, samples, tsv,
                                               layout)),
-                ("ab", lambda: _step_phase(work, step_dir, q_ref))):
+                ("ab", lambda: _step_phase(work, step_dir, q_ref)),
+                ("ac", lambda: _bench_phase(work, db, reads, n_bases, layout,
+                                            asm_paths))):
             t0 = time.perf_counter()
             phase()
             gc.collect()

@@ -222,9 +222,10 @@ def _sketch_options(a) -> SketchOptions:
         fpr=a.fpr, device=a.device)
 
 
-def _tune_allocator() -> None:
-    """Re-exec once with glibc malloc tuned for streaming ingest
-    (sylph_tpu/cli.py::_tune_allocator).
+def _tune_allocator(module: str = "sylph_tpu_torch") -> None:
+    """Re-exec ``python -m module`` once with glibc malloc tuned for
+    streaming ingest (sylph_tpu/cli.py::_tune_allocator; the bench and the
+    fixture generators re-exec the same way).
 
     The ingest cycles multi-MB buffers (decode blocks, code arrays) across
     threads; stock glibc gives each thread its own arena and mmaps and
@@ -241,7 +242,7 @@ def _tune_allocator() -> None:
                MALLOC_TRIM_THRESHOLD_="-1",
                MALLOC_ARENA_MAX="1")
     try:
-        os.execve(sys.executable, [sys.executable, "-m", "sylph_tpu_torch"]
+        os.execve(sys.executable, [sys.executable, "-m", module]
                   + list(sys.argv[1:]), env)
     except OSError:                      # exec denied: run untuned
         os.environ["SYLPH_NO_MALLOC_TUNE"] = "1"

@@ -237,12 +237,18 @@ class DeviceContainment:
         """Resident-chunk cap when the index exceeds 70% of the devices'
         memory (None = everything resident): the chunks that fit in one
         device, times the count of distinct devices (logical devices on one
-        card share its memory). Chunks past the cap upload per sample."""
-        if self.device.type != "cuda":
+        card share its memory). Chunks past the cap upload per sample.
+        SYLPH_HBM_GB (GB, 1e9 bytes) replaces a device's memory, on any
+        device, as in the JAX package."""
+        env = os.environ.get("SYLPH_HBM_GB")
+        if not env and self.device.type != "cuda":
             return None
         n_chunks = len(gidx.chunk_keys)
         chunk_bytes = gidx.B * gidx.CI * 12
-        _free, total = torch.cuda.mem_get_info(self.device)
+        if env:
+            total = float(env) * 1e9
+        else:
+            _free, total = torch.cuda.mem_get_info(self.device)
         n_cards = len(set(self.devices))
         cap = int(0.7 * total) // max(chunk_bytes, 1) * n_cards
         return None if cap >= n_chunks else max(1, cap)
@@ -550,11 +556,12 @@ def _grange_fingerprint(genome_sketches) -> str:
 def _grange_cache_path(cache_dir: str, total: int, genome_sketches) -> str:
     """The layout's directory under ``cache_dir``. The ``torch_`` prefix
     keeps it apart from the JAX package's (hi, lo) layouts, which it
-    names ``grange_*`` in the same variable's directory; ``ntauto`` is the
-    layout setting (the engine lets the build choose nt)."""
+    names ``grange_*`` in the same variable's directory; ``nt<SYLPH_NT>``
+    is the layout setting (``ntauto`` where the build chooses nt)."""
     fp = _grange_fingerprint(genome_sketches)
+    nt = os.environ.get("SYLPH_NT", "auto")
     return os.path.join(cache_dir, f"torch_grange_{len(genome_sketches)}_"
-                        f"{total}_{fp}_ntauto")
+                        f"{total}_{fp}_nt{nt}")
 
 
 def _grange_cache_load(path: str, total: int, n_genomes: int,

@@ -49,6 +49,16 @@ _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()   # kernels launch from the ingest's threads
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them."""
+    import subprocess
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
 def reset_launches() -> None:
     with _COUNT_LOCK:
         for k in LAUNCHES:

@@ -47,6 +47,7 @@ package's TPU switches are gone and their defaults are module constants.
 """
 
 import logging
+import os
 import time
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -203,19 +204,23 @@ def build_grange_index(kmers_u64: np.ndarray, gids: np.ndarray,
     out in range chunks. ``ci_cap`` bounds the flat bucket capacity
     (defaults to a generous Poisson tail); deeper buckets spill.
     ``nt`` > 1 selects the hash-tiled
-    layout; None picks nt=4 iff the fullest chunk's real per-bucket mean is
-    >= 896, else the flat layout. Duplication runs longer than
-    ``heavy_run`` (default 16; 0 disables) go to the heavy CSR. Same
-    layout, field by field, as sylph_tpu's build_grange_index with its
-    defaults."""
+    layout; None takes SYLPH_NT where it is set to a number, else picks
+    nt=4 iff the fullest chunk's real per-bucket mean is >= 896, else the
+    flat layout. Duplication runs longer than ``heavy_run`` (default
+    SYLPH_HEAVY_RUN, else 16; 0 disables) go to the heavy CSR. Same
+    layout, field by field, as sylph_tpu's build_grange_index."""
     m_total = m = int(kmers_u64.size)
     if target_mean is None:
         target_mean = 1024
+    if nt is None:
+        env_nt = os.environ.get("SYLPH_NT", "auto")
+        if env_nt != "auto":
+            nt = int(env_nt)
     su, sg = _sort_kv(kmers_u64, gids, resolve_device(device))
 
     heavy_gids, heavy_ptr = _EMPTY_I32, _EMPTY_PTR
     if heavy_run is None:
-        heavy_run = _HEAVY_RUN
+        heavy_run = int(os.environ.get("SYLPH_HEAVY_RUN", str(_HEAVY_RUN)))
     if heavy_run > 0 and m > 1:
         first = np.empty(m, bool)
         first[0] = True
@@ -630,11 +635,19 @@ class GRangeEngine:
                 f"{self._span} serves hists() (and merge_process_hists)")
 
     def heavy_expand(self, hh: np.ndarray) -> np.ndarray:
-        """[n_heavy, H] marker-row counts -> [G, H] real-genome counts."""
+        """[n_heavy, H] marker-row counts -> [G, H] real-genome counts.
+        Raises on an index whose CSR is virtual (heavy_ptr without its
+        heavy_gids, as the synthetic index leaves it by default)."""
         g = self.gidx
         G, H = g.n_genomes, HIST_H
         out = np.zeros((G, H), np.int64)
         ptr, hg = g.heavy_ptr, g.heavy_gids
+        if hg.size != int(ptr[-1]):
+            raise ValueError(
+                f"the heavy CSR holds {hg.size} genome ids for "
+                f"{int(ptr[-1])} entries (a virtual CSR): expand its "
+                "markers on the device (gpu/synth_index.py::"
+                "expand_markers_device)")
         for mlt in range(H):
             rows = np.flatnonzero(hh[:, mlt])
             if not rows.size:
@@ -743,7 +756,8 @@ class GRangeEngine:
 
     def hist_device_stream(self, skey: torch.Tensor,
                            w_dev: Optional[torch.Tensor] = None,
-                           n_matches: Optional[int] = None):
+                           n_matches: Optional[int] = None,
+                           cs: Optional[int] = None):
         """All-device histogram of a sorted unique sample (``skey`` int64
         [n] in uint64 order, ``w_dev`` its weights): chunk offsets on the
         device, per-chunk slices gathered on the device, nothing crosses to
@@ -759,10 +773,12 @@ class GRangeEngine:
         chunk slice); the histogram is exact iff probe[0] == 0 and
         probe[1] <= P. The slice length P and the cell capacity are sized
         from the sample's mean per chunk (after the fold, the distinct
-        keys), and the code compaction from an estimated match count
-        (``n_matches``, else twice the sample), not from the measured
-        slices, so no fetch gates the dispatch; a violation shows in the
-        probe and callers take the per-chunk path instead."""
+        keys; an explicit ``cs`` overrides the cell capacity, as a retry
+        after a failed probe asks), and the code compaction from an
+        estimated match count (``n_matches``, else twice the sample), not
+        from the measured slices, so no fetch gates the dispatch; a
+        violation shows in the probe and callers take the per-chunk path
+        instead."""
         self._require_one_device("hist_device_stream")
         if w_dev is None:
             skey, w_dev = fold_stream(skey)
@@ -773,7 +789,9 @@ class GRangeEngine:
         mean = t / n_chunks
         P = _quantize_p(1.3 * mean + 6.0 * np.sqrt(mean) + 64, t)
         starts, ends = self._device_slices(skey)
-        if gidx.nt > 1:
+        if cs is not None:
+            CS = cs
+        elif gidx.nt > 1:
             CS = cell_cs(max(1, t // n_chunks), gidx.B * gidx.nt)
         else:
             CS = sample_cs(max(1, t // n_chunks), gidx.B, granularity=8)

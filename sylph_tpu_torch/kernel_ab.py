@@ -174,10 +174,7 @@ def main(argv=None) -> int:
               "is False)", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(f"card: {smi}")
+    print(f"card: {_cuda.card_line()}")
     _load_tree(a.old_tree)
     rng = np.random.default_rng(a.seed)
     out, sources = {}, set()

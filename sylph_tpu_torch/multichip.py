@@ -1,6 +1,7 @@
 """Several devices and processes, checked end to end (counterpart of
 __graft_entry__.py::dryrun_multichip and _dryrun_grange, and of the worker
-of tests/multiproc_worker.py).
+of tests/multiproc_worker.py), and ``entry()``, the one-device compile
+check of __graft_entry__.py::entry.
 
     python -m sylph_tpu_torch.multichip dryrun N [--device cuda|cpu]
 
@@ -391,6 +392,31 @@ def _dryrun_grange(devices: List[torch.device],
         raise AssertionError(
             f"process-span partial histograms do not sum to the oracle: "
             f"{np.abs(p0 + p1 - want).sum()} total count error")
+
+
+def entry(device="cuda"):
+    """(fn, args) of the one-device compile check (__graft_entry__.py:
+    51-66): ``fn(*args)`` runs gpu/pipeline.py::profile_step on 256 reads
+    of 128 bases against 8 genomes x 512 k-mers (c = 50, k = 31) and
+    returns (hist [8, 64], final_ani, final_cov); ``args`` are on
+    ``device`` (the default ``cuda`` raises without a GPU)."""
+    from .gpu.grange import resolve_device
+    from .gpu.pipeline import profile_step
+
+    dev = resolve_device(device)
+    c, k, G = 50, 31, 8
+    bases, lengths, idx = example_data(256, 128, 512, G, c=c, k=k)
+
+    def forward(bases, lengths, idx_key, gids, n_kmers):
+        hist, st = profile_step(bases, lengths, idx_key, gids, n_kmers, c=c,
+                                k=k, n_genomes=G, n_buckets=64, min_ani=0.5,
+                                device=dev)
+        return hist, st.final_ani, st.final_cov
+
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (bases.astype(np.uint8), lengths, idx.keys,
+                           idx.genome_ids, idx.n_kmers))
+    return forward, args
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda",

@@ -1507,3 +1507,85 @@ def test_sharded_merge_join_two_devices_matches_plain(cuda):
     for s in samples[1:]:
         g, w = sh._counts(s), one._counts(s)
         np.testing.assert_array_equal(g[:n], w[:n])
+
+
+# ---- the bench's synthetic index and entry() (gpu/synth_index.py) ---------
+
+@pytest.mark.parametrize("nt,dup", [(1, False), (4, False), (4, True)])
+def test_synth_index_on_card_matches_cpu(cuda, nt, dup):
+    """The synthetic index made on the card equals its CPU generation and
+    the host replay of chunk 0, field for field."""
+    from sylph_tpu_torch.gpu import synth_index as si
+    kw = dict(chunk_slots=1 << 15, target_mean=256, nt=nt)
+    G, KPG = 60, 2000
+    spec = (lambda: si.DupSpec(hf=0.5, r=4, lbase=20, lmod=16)) if dup \
+        else (lambda: None)
+    d_cpu, d_card = spec(), spec()
+    a = si.synth_index_device(G, KPG, 50, device="cpu", dup=d_cpu, **kw)
+    b = si.synth_index_device(G, KPG, 50, device="cuda", dup=d_card, **kw)
+    assert len(a.chunk_keys) == len(b.chunk_keys) >= 2
+    for ka, ga, kb, gb in zip(a.chunk_keys, a.chunk_gid, b.chunk_keys,
+                              b.chunk_gid):
+        assert kb.device.type == "cuda"
+        assert torch.equal(ka, kb.cpu()) and torch.equal(ga, gb.cpu())
+    for f in ("m", "B", "CI", "width", "nt", "ov", "n_heavy"):
+        assert getattr(a, f) == getattr(b, f), f
+    (hk, hg), = si.synth_chunks_host(G, KPG, 50, dup=d_cpu, chunks=[0],
+                                     **kw)
+    np.testing.assert_array_equal(hk, b.chunk_keys[0].cpu().numpy())
+    np.testing.assert_array_equal(hg, b.chunk_gid[0].cpu().numpy())
+    pa = si.synth_plants_host(G, KPG, 50, per_chunk=512, gid_max=None,
+                              dup=d_cpu, device="cpu", **kw)
+    pb = si.synth_plants_host(G, KPG, 50, per_chunk=512, gid_max=None,
+                              dup=d_card, device="cuda", **kw)
+    np.testing.assert_array_equal(pa[0], pb[0])
+    np.testing.assert_array_equal(pa[1], pb[1])
+
+
+def test_inverse_hash_on_card_matches_numpy(cuda):
+    from sylph_tpu_torch.gpu import synth_index as si
+    from sylph_tpu_torch.kmer.hashing import inv_mm_hash64_np
+    x = np.random.default_rng(9).integers(0, 2 ** 64, size=1 << 16,
+                                          dtype=np.uint64)
+    got = si.inv_mm_hash64(torch.from_numpy(x.view(np.int64)).cuda())
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint64),
+                                  inv_mm_hash64_np(x))
+
+
+def test_expand_markers_on_card_matches_cpu(cuda):
+    from sylph_tpu_torch.gpu import synth_index as si
+    G, n_heavy, H = 40, 300, 64
+    rng = np.random.default_rng(3)
+    hist = np.zeros((G + n_heavy) * H + 1, np.int64)
+    hist[:G * H] = rng.integers(0, 3, size=G * H)
+    rows = rng.choice(n_heavy, size=50, replace=False)
+    hist[G * H + rows * H + rng.integers(1, H, size=50)] = 1
+    h = torch.from_numpy(hist)
+    for caps in ((64, 1 << 14), (20, 1 << 14), (64, 100)):
+        a, oka = si.expand_markers_device(h, G=G, n_heavy=n_heavy,
+                                          runs_cap=caps[0],
+                                          entries_cap=caps[1], lbase=20,
+                                          lmod=16)
+        b, okb = si.expand_markers_device(h.cuda(), G=G, n_heavy=n_heavy,
+                                          runs_cap=caps[0],
+                                          entries_cap=caps[1], lbase=20,
+                                          lmod=16)
+        assert torch.equal(a, b.cpu()) and bool(oka) == bool(okb)
+
+
+def test_entry_on_card_matches_cpu(cuda):
+    """multichip.entry() on the card (B6 and the merge join) against its
+    plain run on the CPU: the histogram exactly, ANI and coverage within
+    rtol 1e-5."""
+    from sylph_tpu_torch.gpu import _cuda
+    from sylph_tpu_torch.multichip import entry
+    fn, args = entry()
+    assert all(a.device.type == "cuda" for a in args)
+    n0 = _cuda.LAUNCHES["B6_seed_pack"]
+    h, ani, cov = fn(*args)
+    assert _cuda.LAUNCHES["B6_seed_pack"] == n0 + 1
+    fc, ac = entry(device="cpu")
+    hc, anic, covc = fc(*ac)
+    assert torch.equal(h.cpu(), hc) and int(hc[:, 1:].sum()) > 0
+    np.testing.assert_allclose(ani.cpu().numpy(), anic.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(cov.cpu().numpy(), covc.numpy(), rtol=1e-5)
