@@ -199,6 +199,27 @@ and drives the port's main path once, at database scale:
      ``reduced``; ``e2e`` is not run). Each config's JSON line is printed
      with its stage split and launches.
 
+ 11. (ad) The host engine and the dev tools, each with the launch counts
+     set to 0 just before it: ``profile`` and ``query --device host`` of
+     (j)'s merge database and ``profile --device host`` of (l)'s bucket
+     database (the native C seeder and host probes: no kernel launches)
+     give the card's TSVs of the same calls byte for byte (the grange
+     database and the bucket query are cut: ``reduced``);
+     ``sylph_tpu_torch.gbench`` at full width (the gtdb config's 100,000 x
+     7,168 index made on the card, 64 batches of [65,536, 256] planted
+     reads; variants prefix joinonly joinstages dense75 seed_t fused8; 2
+     timed reps; device times of joinstages' lines only): every variant's
+     histogram equals full's, full's the oracle, B5 launches once a chunk
+     in joinstages' +compare line (its launches and profiler ms join the
+     kernels line's B5 row);
+     ``sylph_tpu_torch.dupskew`` at a reduced size (listed under
+     ``reduced``), its four default profiles at nt 1 and 4, every parity
+     and dparity OK; ``sylph_tpu_torch.stage_timing`` (plain seeding, B7
+     and the compaction agree at [65,536, 256]); and
+     ``sylph_tpu_torch.profile_ingest`` on 2 blocks of (3)'s
+     reads.fastq.gz (its phased sketch equals the host seeder's). Each
+     tool prints its record as one ``(ad) NAME: {json}`` line.
+
 Any failed check raises and the script exits non-zero. The last lines are
 the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -1776,7 +1797,8 @@ def _repack_extras(fn, x, live, row: int, cap: int) -> dict:
 
     from sylph_tpu_torch.gpu import _cuda
     from sylph_tpu_torch.gpu import bucket_fill as bf
-    lib = _cuda.device_ms_all(lambda: torch.masked_select(x, live))
+    lib = _cuda.device_ms_calls(lambda: torch.masked_select(x, live), {},
+                                20)[0]
     return dict(profiler_ms=_profiler_ms(fn, "repack_kernel"),
                 library_profiler_ms="not measured" if lib is None else lib,
                 occupancy=bf.repack_occupancy(row, cap, x.dtype))
@@ -2288,7 +2310,8 @@ def _kbench_phase(record):
                       generator=torch.Generator(device="cuda").manual_seed(0))
     ident = dict(profiler_ms=_cuda.device_ms(
         lambda: kbench.launch("identity", x), "kb_identity"),
-        library_profiler_ms=_cuda.device_ms_all(lambda: x.clone()))
+        library_profiler_ms=_cuda.device_ms_calls(lambda: x.clone(), {},
+                                                  20)[0])
     del x
     for r in rows:
         if r["kernel"] is None:
@@ -3089,6 +3112,20 @@ def _step_phase(work, step_dir, q_ref):
 
 BENCH_REPS = 2                 # timed reps a config (the bench takes 5-7)
 BENCH_SAMPLES = 4              # gtdb --samples
+# (ad): gbench at full width; dupskew cut to fit the time limit (its
+# defaults: --unique 2^28 --sample 2e6 in 2^25-slot chunks)
+GBENCH_VARIANTS = ("prefix", "joinonly", "joinstages", "dense75", "seed_t",
+                   "fused8")
+DUPSKEW_UNIQUE = 1 << 17      # the uniform profile's index: 8 full chunks
+DUPSKEW_SAMPLE = 50_000
+DUPSKEW_CHUNK = 1 << 14       # 16 buckets at the GTDB chunks' mean
+GBENCH_REPS = 2               # the tool's default: 3
+# (ad) profiles joinstages' lines only (B5's time among them): in this
+# long-lived process the profiler drops some of B6's launches in every
+# window, and each window costs seconds
+GBENCH_PROFILED = ("join:prep", "join:fill", "join:+compare",
+                   "join:+codes", "join:full")
+INGEST_BLOCKS = 2
 
 
 def _launched():
@@ -3275,6 +3312,91 @@ def _bench_phase(work, db, reads, n_bases, layout, asm_paths):
     print("bench (ac): " + json.dumps(out))
 
 
+def _host_engine_checks(work, merge, bucket):
+    """(ad), first part: ``profile`` and ``query --device host`` of the
+    merge database and ``profile --device host`` of the bucket database
+    against the card's TSVs of the same calls, (j)'s, (k)'s and (l)'s (the
+    bucket query is cut: ``reduced``)."""
+    out = {}
+    for tag, (db, smp, card) in (("merge", merge), ("bucket", bucket)):
+        for mode, want in card.items():
+            got = os.path.join(work, f"ad_{tag}_{mode}_host.tsv")
+            launches, wall, _s, dc = _drive([mode, db, smp, "-o", got,
+                                             "--device", "host"])
+            if dc is not None or any(launches.values()):
+                _fail(f"(ad) --device host {mode} of {tag} built a device "
+                      f"engine or launched kernels: "
+                      f"{ {k: v for k, v in launches.items() if v} }")
+            _same_file(got, want, f"(ad) --device host {mode} of {tag}")
+            out[f"{tag}_{mode}_host_s"] = wall
+            with open(want) as f:
+                out[f"{tag}_{mode}_rows"] = sum(1 for _ in f) - 1
+    print("check (ad): --device host profile and query of the merge "
+          "database and profile of the bucket database == the card's TSVs, "
+          "no kernel launched")
+    return out
+
+
+def _devtools_phase(work, merge, bucket, reads, rows):
+    """(ad): the host engine against the card, then gbench, dupskew,
+    stage_timing and profile_ingest, each with the launch counts set to 0
+    just before it and its checks required."""
+    import torch
+
+    from sylph_tpu_torch import dupskew, gbench, profile_ingest, stage_timing
+    from sylph_tpu_torch.gpu import _cuda
+
+    dev = torch.device("cuda")
+    out = {"host_engine": _host_engine_checks(work, merge, bucket)}
+
+    def run(name, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(wall_s=time.perf_counter() - t0,
+                         launches=_launched())
+        print(f"(ad) {name}: " + json.dumps(res))
+        return res
+
+    g = run("gbench", lambda: gbench.run(
+        100_000, GBENCH_REPS, 64, 65536, 7168, "device", True, dev,
+        GBENCH_VARIANTS, profiled=GBENCH_PROFILED))
+    comp = g["lines"]["join:+compare"]
+    n_b5 = comp["launches"].get("B5_join_counts", 0)
+    if n_b5 != g["index"]["chunks"]:
+        _fail(f"(ad) gbench joinstages launched B5 {n_b5} times, not once "
+              f"a chunk ({g['index']['chunks']})")
+    b5 = comp["kernels"].get("join_kernel")
+    for r in rows:
+        if r["name"] == "B5_join_counts":
+            r.update(gbench_launches=n_b5,
+                     gbench_profiler_ms=None if b5 is None else b5["ms"])
+    out["gbench"].update(
+        lines={k: dict(best_ms=v["best_ms"], device_ms=v["device_ms"])
+               for k, v in g["lines"].items()}, b5=b5, checks=g["checks"])
+    del g
+    d = run("dupskew", lambda: dupskew.run(
+        DUPSKEW_UNIQUE, 25_000, dupskew.PROFILES, (1, 4), DUPSKEW_SAMPLE,
+        DUPSKEW_CHUNK, dev))
+    out["dupskew"]["table"] = [
+        {k: r[k] for k in ("profile", "nt", "CI", "lane", "spill_frac",
+                           "heavy", "stream_ms", "parity", "dparity")}
+        for r in d]
+    st = run("stage_timing", lambda: stage_timing.run(dev))
+    out["stage_timing"].update(stages=st["stages"])
+    pi = run("profile_ingest", lambda: profile_ingest.run(
+        reads, INGEST_BLOCKS, dev))
+    out["profile_ingest"].update(warm=pi["warm"], gbp=pi["gbp"],
+                                 batches=pi["batches"])
+    print("check (ad): gbench variants == full == oracle, B5 once a chunk "
+          "in joinstages; dupskew parity and dparity OK at nt 1 and 4; "
+          "stage_timing and profile_ingest agree")
+    print("devtools (ad): " + json.dumps(out))
+
+
 def main(argv=None) -> int:
     a = _parse(argv)
     import torch
@@ -3309,7 +3431,20 @@ def main(argv=None) -> int:
         "1 warm-up and 1 timed run, in place of bench_fixtures gtdb_cli",
         bench_sketchdb="(i)'s 256 assemblies (1.05 Gbp), 1 run, in place "
         "of 107 x 10 Mbp",
-        bench_e2e="not run: its fixture costs minutes of gzip")
+        bench_e2e="not run: its fixture costs minutes of gzip",
+        host_engine_grange="--device host of the main grange database not "
+        "run in (ad): its host prefilter probes 7.2e8 index k-mers (the "
+        "gtdb_cli host golden took 399 s); python -m "
+        "sylph_tpu_torch.host_golden holds that scale in a call of its own",
+        host_engine_bucket_query="--device host query of (l)'s bucket "
+        "database not run in (ad) (its host run took 26 s and the card's "
+        "10 s); the bucket profile and the merge profile and query are",
+        dupskew=dict(unique=[1 << 28, DUPSKEW_UNIQUE],
+                     sample=["2e6", DUPSKEW_SAMPLE],
+                     chunk_slots=[1 << 25, DUPSKEW_CHUNK]),
+        gbench_reps=[3, GBENCH_REPS],
+        gbench_profiled=["every line", list(GBENCH_PROFILED)],
+        profile_ingest_blocks=[4, INGEST_BLOCKS])
     print("reduced: " + json.dumps(reduced))
 
     # generated data (about 9 GB), removed at the end
@@ -3380,7 +3515,12 @@ def main(argv=None) -> int:
                                               layout)),
                 ("ab", lambda: _step_phase(work, step_dir, q_ref)),
                 ("ac", lambda: _bench_phase(work, db, reads, n_bases, layout,
-                                            asm_paths))):
+                                            asm_paths)),
+                ("ad", lambda: _devtools_phase(
+                    work, (small_db, small[0], {"profile": merge_tsvs[0],
+                                                "query": merge_tsvs[1]}),
+                    (bucket_paths[0], bucket_paths[1],
+                     {"profile": bucket_paths[2]}), reads, rows))):
             t0 = time.perf_counter()
             phase()
             gc.collect()

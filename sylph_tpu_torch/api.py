@@ -5,7 +5,9 @@ The reference is CLI-only; this module exposes the same engine to Python
 callers (notebooks, pipelines) without touching the filesystem beyond the
 input sequence files. Seeding and containment run on ``device``, the GPU
 unless the CPU is asked for (``device="cpu"``); there is no fall-back to
-the host when no GPU is found.
+the host when no GPU is found. ``device="host"`` is the host engine (the
+JAX package's ``tpu=False``): the native C seeder and numpy, no GPU and no
+kernel.
 
     import sylph_tpu_torch.api as sylph
     db = sylph.sketch_genomes(["a.fa.gz", "b.fa.gz"], c=200, k=31)
@@ -22,8 +24,7 @@ from typing import List, Optional, Sequence
 from .core.sketch_genomes import sketch_genome, sketch_genome_individual
 from .core.sketch_reads import sketch_pair_sequences, sketch_sequences
 from .core.types import GenomeSketch, SequencesSketch
-from .engine.runner import ContainOptions, process_sample
-from .gpu.grange import resolve_device
+from .engine.runner import ContainOptions, engine_device, process_sample
 from .io import sylformat
 
 
@@ -52,7 +53,7 @@ def sketch_genomes(paths: Sequence[str], c: int = 200, k: int = 31,
                    device="cuda") -> List[GenomeSketch]:
     """FracMinHash-sketch genome fasta files (sylph sketch -g ...), seeded
     on ``device``."""
-    dev = resolve_device(device)
+    dev = engine_device(device)
     out: List[GenomeSketch] = []
     for p in paths:
         if individual:
@@ -72,7 +73,7 @@ def sketch_reads(path: str, pair: Optional[str] = None, c: int = 200,
                  device="cuda") -> Optional[SequencesSketch]:
     """Sketch a (optionally paired) read file (sylph sketch -r/-1/-2),
     seeded on ``device``."""
-    dev = resolve_device(device)
+    dev = engine_device(device)
     if pair is not None:
         return sketch_pair_sequences(path, pair, c, k, None, not dedup,
                                      device=dev)
@@ -117,11 +118,15 @@ def _check_profiling(db: List[GenomeSketch]) -> None:
 
 
 def _engine(db, device):
-    """The device engine of ``db`` on ``device``; asking for the GPU
-    without one raises (the JAX package's _engine returns the host engine
-    when it finds no device, sylph_tpu/api.py:125-129)."""
+    """The device engine of ``db`` on ``device``, or None (the host engine)
+    for ``device="host"`` (sylph_tpu/api.py:125-129 with ``tpu=False``);
+    asking for the GPU without one raises (the JAX package's _engine
+    returns the host engine when it finds no device)."""
+    dev = engine_device(device)
+    if dev is None:
+        return None
     from .engine.device_exec import DeviceContainment
-    return DeviceContainment(db, device=resolve_device(device))
+    return DeviceContainment(db, device=dev)
 
 
 def query(db: List[GenomeSketch], sample: SequencesSketch,
@@ -156,7 +161,8 @@ class Profiler:
         for s in samples:
             rows = prof.profile(s)
 
-    Without a GPU, ``Profiler(db)`` raises unless ``device="cpu"`` is
+    Without a GPU, ``Profiler(db)`` raises unless ``device="cpu"`` or
+    ``device="host"`` (the host engine, nothing resident but ``db``) is
     asked for. Reference counterpart: the resident-DB chunked sample loop
     (src/contain.rs:239-256), which amortizes the database load across one
     invocation's file list; here it amortizes across calls."""
@@ -164,7 +170,7 @@ class Profiler:
     def __init__(self, db: List[GenomeSketch], device="cuda",
                  **default_opts):
         self.db = db
-        self.device = resolve_device(device)
+        self.device = device if device == "host" else engine_device(device)
         self._engine = _engine(db, self.device)
         self._defaults = default_opts
 

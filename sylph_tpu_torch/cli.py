@@ -2,10 +2,12 @@
 query, inspect}``.
 
 The flags are sylph_tpu's (sylph src/cmdline.rs), less ``--tpu``, plus
-``--device {cuda,cpu}`` (default cuda: seeding and containment run on every
-visible GPU, or the first ``SYLPH_TPU_DEVICES``, unless the CPU is asked
-for). ``profile``/``query`` with ``--coordinator HOST:PORT --num-processes N
---process-id i`` run as process i of N (a gloo group, utils/distributed.py):
+``--device {cuda,cpu,host}`` (default cuda: seeding and containment run on
+every visible GPU, or the first ``SYLPH_TPU_DEVICES``, unless the CPU is
+asked for; ``host`` is the JAX CLI without ``--tpu``, the host engine: the
+native C seeder and numpy, no GPU and no kernel). ``profile``/``query``
+with ``--coordinator HOST:PORT --num-processes N --process-id i`` run as
+process i of N (a gloo group, utils/distributed.py):
 every process runs the same command, the grange engine splits the chunks
 between them and merges the histograms, and process 0 writes the TSV; with
 ``--device cpu`` every process runs the plain kernels. ``sketch`` takes
@@ -40,9 +42,12 @@ def _setup_logging(trace: bool = False, debug: bool = False):
 
 
 def _device_flag(p, what: str):
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+    p.add_argument("--device", choices=("cuda", "cpu", "host"),
+                   default="cuda",
                    help=f"where {what} runs (default: the GPU; there is no "
-                   "fallback to the CPU unless it is asked for)")
+                   "fallback to the CPU unless it is asked for). 'host' "
+                   "runs the host engine: the native C seeder and numpy "
+                   "probes, no GPU and no kernel")
 
 
 def _add_sketch(sub):

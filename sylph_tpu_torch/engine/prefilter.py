@@ -25,7 +25,7 @@ far below 63 by the Poisson cut), and every other path decides on
 naive ANI, which depends only on the containment count.
 """
 
-from typing import Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -35,6 +35,54 @@ from ..stats.gammainc import poisson_cdf
 
 _H = 64                 # histogram width (multiplicities clamp at _H - 1)
 _ANI_MARGIN = 1e-9      # ulp guard on the ANI floor comparison
+_HOST_CHUNK = 1 << 25   # index k-mers per host searchsorted chunk
+
+
+def genome_hists(counts_chunks: Iterator[Tuple[np.ndarray, np.ndarray]],
+                 n_genomes: int) -> np.ndarray:
+    """[G, H] multiplicity histograms (count >= 1 only) from (counts, gids)
+    chunks covering the flattened genome index (the host engine's)."""
+    flat = np.zeros(n_genomes * _H, dtype=np.int64)
+    for counts, gids in counts_chunks:
+        m = (counts > 0) & (gids >= 0) & (gids < n_genomes)
+        if not m.any():
+            continue
+        seg = (gids[m].astype(np.int64) * _H
+               + np.minimum(counts[m].astype(np.int64), _H - 1))
+        flat += np.bincount(seg, minlength=n_genomes * _H)
+    return flat.reshape(n_genomes, _H)
+
+
+def host_counts_chunks(genome_sketches, sample):
+    """Chunked (counts, gids) stream via batched searchsorted (the host
+    engine): one big probe replaces 10^5 per-genome searchsorted calls;
+    memory stays bounded at about _HOST_CHUNK k-mers a chunk."""
+    sk, sc = sample.sorted_view()
+    batch_kmers, batch_gids, acc = [], [], 0
+    for gi, g in enumerate(genome_sketches):
+        kk = g.genome_kmers
+        if kk.size == 0:
+            continue
+        batch_kmers.append(kk)
+        batch_gids.append(np.full(kk.size, gi, np.int64))
+        acc += kk.size
+        if acc >= _HOST_CHUNK:
+            yield _probe(sk, sc, batch_kmers, batch_gids)
+            batch_kmers, batch_gids, acc = [], [], 0
+    if batch_kmers:
+        yield _probe(sk, sc, batch_kmers, batch_gids)
+
+
+def _probe(sk, sc, batch_kmers, batch_gids):
+    g = np.concatenate(batch_kmers)
+    gids = np.concatenate(batch_gids)
+    if sk.size == 0:
+        return np.zeros(g.size, np.int64), gids
+    idx = np.searchsorted(sk, g)
+    idxc = np.minimum(idx, sk.size - 1)
+    found = (sk[idxc] == g) & (idx < sk.size)
+    counts = np.where(found, sc[idxc], 0)
+    return counts.astype(np.int64), gids
 
 
 def candidate_mask(hist: np.ndarray, n_kmers: np.ndarray, *, k: int,
@@ -133,8 +181,6 @@ def candidate_mask(hist: np.ndarray, n_kmers: np.ndarray, *, k: int,
     return keep
 
 
-
-
 _DEV_ANI_MARGIN = 1e-5   # f32 device mask margin (vs 1e-9 for host f64):
 #                          pow/exp relative error in f32 is ~1e-7, so the
 #                          wider margin keeps the superset property while
@@ -231,14 +277,15 @@ def candidate_mask_device(hist, n_kmers, *, k: int, min_ani: float,
 
 
 def prefilter_candidates(opts, sample, genome_sketches,
-                         device_engine) -> Optional[np.ndarray]:
+                         device_engine=None) -> Optional[np.ndarray]:
     """Candidate genome indices for pass-1, or None when the prefilter
     does not apply (hidden estimators can raise ANI in ways this pass does
     not model, and tiny databases don't need it). The device engine's [G]
     mask is used when it has one (the grange regime on one device in one
     process, sylph_tpu/tpu/grange.py:1525-1540); otherwise its [G, 64]
     histograms, merged over the processes of a group, go through the host
-    mask."""
+    mask. With no device engine (the host engine, ``--device host``) the
+    histograms come from host searchsorted probes (host_counts_chunks)."""
     if opts.estimator != "ratio":
         return None
     G = len(genome_sketches)
@@ -248,16 +295,21 @@ def prefilter_candidates(opts, sample, genome_sketches,
     min_ani = (opts.minimum_ani / 100.0 if opts.minimum_ani is not None
                else (MIN_ANI_P_DEF if opts.pseudotax else MIN_ANI_DEF))
     from ..utils.timing import stage_timer
-    with stage_timer("prefilter: device mask call"):
-        mask = device_engine.candidates_mask(sample, dict(
-            k=int(genome_sketches[0].k), min_ani=min_ani,
-            min_number_kmers=opts.min_number_kmers,
-            min_count_correct=opts.min_count_correct,
-            no_adj=opts.no_adj))
-    if mask is not None:
-        return np.flatnonzero(mask)
-    hist = device_engine.hists(sample).astype(np.int64)
-    assert hist.shape == (G, _H)
+    if device_engine is None:
+        with stage_timer("prefilter: host probes"):
+            hist = genome_hists(host_counts_chunks(genome_sketches, sample),
+                                G)
+    else:
+        with stage_timer("prefilter: device mask call"):
+            mask = device_engine.candidates_mask(sample, dict(
+                k=int(genome_sketches[0].k), min_ani=min_ani,
+                min_number_kmers=opts.min_number_kmers,
+                min_count_correct=opts.min_count_correct,
+                no_adj=opts.no_adj))
+        if mask is not None:
+            return np.flatnonzero(mask)
+        hist = device_engine.hists(sample).astype(np.int64)
+        assert hist.shape == (G, _H)
     n_kmers = np.array([g.genome_kmers.size for g in genome_sketches],
                        dtype=np.int64)
     keep = candidate_mask(

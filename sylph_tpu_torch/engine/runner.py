@@ -21,6 +21,14 @@ repeated calls), keyed on the ``.syldb`` files' paths, times and sizes.
 ``--profile-trace DIR`` writes a torch.profiler trace of the sample loop.
 In a group of several processes (``--coordinator``) every process runs the
 same call and only process 0 writes (``_secondary_process``).
+
+``device="host"`` (``--device host``) is the JAX package's host engine, its
+CLI without ``--tpu`` (runner.py:538-562, 627-642 there): no device engine
+and no kernel, reads and fasta genomes seeded by the native C seeder, the
+prefilter's histograms from host searchsorted probes
+(engine/prefilter.py::host_counts_chunks), the exact statistics from host
+probes, and samples processed ``sample_parallelism_step`` at a time on a
+thread pool, written in input order. It runs only when asked for by name.
 """
 
 import logging
@@ -30,6 +38,8 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import List, Optional, TextIO
+
+import torch
 
 from ..constants import (DEFAULT_C, DEFAULT_FPR, DEFAULT_K,
                          DEFAULT_MIN_COUNT_CORRECT,
@@ -81,8 +91,35 @@ class ContainOptions:
     no_ci: bool = False
     no_adj: bool = False
     mean_coverage: bool = False
-    device: str = "cuda"       # containment device: "cuda" or "cpu"
+    device: str = "cuda"       # "cuda", "cpu", or "host" (no device engine)
     profile_trace: Optional[str] = None  # torch.profiler trace output dir
+
+
+HOST = "host"                  # the device name of the host engine
+
+
+def engine_device(device) -> Optional[torch.device]:
+    """None for ``"host"`` (the host engine: the native C seeder and numpy
+    probes, no GPU and no kernel), else the resolved torch device; asking
+    for CUDA without a GPU raises."""
+    return None if device == HOST else resolve_device(device)
+
+
+def sample_parallelism_step(pseudotax: bool, threads: int,
+                            sample_threads: Optional[int],
+                            num_raw_read_files: int) -> int:
+    """Concurrent-sample worker count of the host engine (sylph
+    src/contain.rs:239-256).
+
+    The reference counts RAW read files only (pre-sketched .sylsp samples
+    are cheap to load and don't justify extra workers); profile floors at
+    threads/3+1 so the nested per-genome parallelism keeps 2/3 of the pool.
+    """
+    if sample_threads is not None:
+        return sample_threads if sample_threads > 0 else 1
+    if pseudotax:
+        return max(threads // 3 + 1, min(num_raw_read_files, threads))
+    return max(1, min(num_raw_read_files, threads))
 
 
 def _stat_params(opts: ContainOptions, k: int) -> StatParams:
@@ -316,13 +353,17 @@ def _load_sample(opts: ContainOptions, read_file: List[str],
                  is_sketch: bool, genome_sketches, device_engine):
     """Read or sketch one sample. A raw-read sample streams its k-mers to
     the device during the sketch; the finished stream becomes the
-    sample's device view (runner.py:564-585 of the JAX package)."""
-    streamer = None if is_sketch else device_engine.sample_streamer()
+    sample's device view (runner.py:564-585 of the JAX package). With no
+    device engine (the host engine) reads are seeded by the native C
+    seeder and nothing streams."""
+    streamer = (None if is_sketch or device_engine is None
+                else device_engine.sample_streamer())
     sk = None
     try:
         sk = _get_seq_sketch(opts, read_file, is_sketch,
                              genome_sketches[0].c, genome_sketches[0].k,
-                             device_engine.device, streamer=streamer)
+                             device_engine.device if device_engine else None,
+                             streamer=streamer)
     finally:
         if streamer is not None:
             if sk is not None:
@@ -519,6 +560,31 @@ def _cohorts(opts: ContainOptions, items, genome_sketches, device_engine):
                 yield rf, results
 
 
+def _host_samples(opts: ContainOptions, items, genome_sketches, n_raw: int):
+    """(read files, results or None) per sample on the host engine, in
+    input order: each sample loaded and processed by one worker of a pool
+    of ``sample_parallelism_step`` threads (runner.py:556-562, 627-642 of
+    the JAX package), or in turn where that is 1."""
+    step = sample_parallelism_step(opts.pseudotax, opts.threads,
+                                   opts.sample_threads, n_raw)
+
+    def handle(item):
+        rf, is_sketch = item
+        with stage_timer(f"load/sketch sample {rf[0]}"):
+            sample = _load_sample(opts, rf, is_sketch, genome_sketches, None)
+        if sample is None:
+            return rf, None
+        with stage_timer(f"process sample {rf[0]}",
+                         items=len(genome_sketches)):
+            return rf, process_sample(opts, sample, genome_sketches, None)
+
+    if step == 1 or len(items) <= 1:
+        yield from map(handle, items)
+        return
+    with ThreadPoolExecutor(max_workers=step) as ex:
+        yield from ex.map(handle, items)
+
+
 _ENGINE_CACHE = {}      # (db key, device) -> DeviceContainment (opt-in)
 
 
@@ -527,8 +593,11 @@ def _device_engine_for(genome_sketch_files, genome_files, genome_sketches,
     """The device engine of this database on ``device``: one per call, or
     under SYLPH_TPU_CACHE_INDEX=1 one resident engine reused by later
     calls on the same .syldb files and device (runner.py:453-475 of the
-    JAX package), which skip the index build and upload."""
+    JAX package), which skip the index build and upload. None for the
+    host engine (``device`` None)."""
     from .device_exec import DeviceContainment
+    if device is None:
+        return None
     if not _caching(genome_sketch_files, genome_files):
         return DeviceContainment(genome_sketches, device=device)
     key = (_db_key(genome_sketch_files), str(device))
@@ -561,6 +630,9 @@ def _open_out(opts: ContainOptions, out: Optional[TextIO]):
 
 
 def _log_devices(device_engine) -> None:
+    if device_engine is None:
+        log.info("Containment runs on the host engine (no device).")
+        return
     devs = device_engine.devices
     log.info("Containment runs on %d device(s) (%s)%s.", len(devs),
              ", ".join(map(str, devs)),
@@ -583,7 +655,7 @@ def _load_database(opts: ContainOptions, need_samples: bool):
         log.error("No read files found; see sylph query/profile -h for "
                   "help. Exiting")
         raise SystemExit(1)
-    device = resolve_device(opts.device)
+    device = engine_device(opts.device)
     with stage_timer("load database"):
         genome_sketches = _get_genome_sketches(opts, genome_sketch_files,
                                                genome_files, device)
@@ -618,8 +690,11 @@ def contain(opts: ContainOptions, pseudotax: bool,
     samples = ([(rf, False) for rf in read_files]
                + [([f], True) for f in read_sketch_files])
     with maybe_profile(opts.profile_trace):
-        for rf, results in _cohorts(opts, samples, genome_sketches,
-                                    device_engine):
+        outputs = (_cohorts(opts, samples, genome_sketches, device_engine)
+                   if device_engine is not None else
+                   _host_samples(opts, samples, genome_sketches,
+                                 len(read_files)))
+        for rf, results in outputs:
             if results is not None:
                 for r in results:
                     print_ani_result(r, opts.pseudotax, out)
@@ -645,7 +720,9 @@ def serve(opts: ContainOptions, pseudotax: bool,
     Each request's TSV rows are written and flushed before the next line is
     read. A bad line or a failed sample (a bad .sylsp's SystemExit too)
     logs and continues; EOF ends the loop. There is no fall-back to the
-    host: without a GPU, ``device="cuda"`` raises as in ``contain``."""
+    host: without a GPU, ``device="cuda"`` raises as in ``contain``;
+    ``device="host"`` serves on the host engine (runner.py:713-725 of the
+    JAX package)."""
     from ..utils.threads import set_thread_budget
     set_thread_budget(opts.threads)
     if pseudotax:

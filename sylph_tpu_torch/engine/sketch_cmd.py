@@ -5,7 +5,10 @@ extension, list files, sample renaming, one ``<dir>/<basename>.sylsp`` per
 single-end read input, ``<dir>/<basename>.paired.sylsp`` per pair, and one
 ``<out>.syldb`` for all genomes. Reads and genomes are seeded on ``device``
 (the GPU unless the CPU is asked for); the duplicate and spacing filters of
-genomes and the dedup fold of reads run on the host.
+genomes and the dedup fold of reads run on the host. ``device="host"``
+(``--device host``) is the JAX package's host path, its ``sketch`` without
+``--tpu``: the native C seeder, no GPU and no kernel, read files sketched
+on a pool of -t threads as genomes are (sketch_cmd.py:180-215 there).
 """
 
 import logging
@@ -19,7 +22,6 @@ from ..constants import (DEFAULT_C, DEFAULT_FPR, DEFAULT_K,
                          SAMPLE_FILE_SUFFIX)
 from ..core.sketch_genomes import sketch_genome, sketch_genome_individual
 from ..core.sketch_reads import sketch_pair_sequences, sketch_sequences
-from ..gpu.grange import resolve_device
 from ..io import sylformat
 from ..io.fastx import is_fasta, is_fastq
 
@@ -82,7 +84,7 @@ class SketchOptions:
     no_pseudotax: bool = False
     min_spacing_kmer: int = DEFAULT_MIN_SPACING
     fpr: float = DEFAULT_FPR
-    device: str = "cuda"       # where sequences are seeded: "cuda" or "cpu"
+    device: str = "cuda"       # where sequences are seeded: cuda, cpu, host
 
 
 def _parse_line_file(path: str, vec: List[str]):
@@ -156,7 +158,11 @@ def sketch(o: SketchOptions):
         log.warning("-o is set but no genomes are present. -o only applies "
                     "to genomes; see -d for reads")
 
-    device = resolve_device(o.device)
+    from .runner import engine_device
+    device = engine_device(o.device)
+    # the host engine sketches read files on the -t pool; the device paths
+    # seed one file at a time (each call fills the card)
+    read_threads = o.threads if device is None else 1
 
     def write(name, sk, suffix):
         os.makedirs(o.sample_output_dir, exist_ok=True)
@@ -166,21 +172,29 @@ def sketch(o: SketchOptions):
         sylformat.write_sylsp(out, sk)
         log.info("Sketching %s complete.", out)
 
+    def do_pair(item):
+        i, (f1, f2) = item
+        name = sample_names[i] if sample_names is not None else None
+        return name, sketch_pair_sequences(f1, f2, o.c, o.k, name,
+                                           o.no_dedup, o.fpr, device=device)
+
+    def do_single(item):
+        i, rf = item
+        check_ram_and_block(o.max_ram, rf)
+        name = (sample_names[i + len(pairs)] if sample_names is not None
+                else None)
+        return name, sketch_sequences(rf, o.c, o.k, name, o.no_dedup,
+                                      device=device)
+
     if pairs:
         log.info("Sketching paired sequences...")
-    for i, (f1, f2) in enumerate(pairs):
-        name = sample_names[i] if sample_names is not None else None
-        sk = sketch_pair_sequences(f1, f2, o.c, o.k, name, o.no_dedup,
-                                   o.fpr, device=device)
+    for name, sk in _pmap(do_pair, list(enumerate(pairs)), read_threads):
         if sk is not None:
             write(name, sk, ".paired" + SAMPLE_FILE_SUFFIX)
     if read_inputs:
         log.info("Sketching non-paired sequences...")
-    for i, rf in enumerate(read_inputs):
-        check_ram_and_block(o.max_ram, rf)
-        name = (sample_names[i + len(pairs)] if sample_names is not None
-                else None)
-        sk = sketch_sequences(rf, o.c, o.k, name, o.no_dedup, device=device)
+    for name, sk in _pmap(do_single, list(enumerate(read_inputs)),
+                          read_threads):
         if sk is not None:
             write(name, sk, SAMPLE_FILE_SUFFIX)
     if genome_inputs:

@@ -212,33 +212,64 @@ PROFILE_MISSES = []     # (kernel, launches the profiler showed, reps)
 PROFILE_TRIES = 3       # profiler windows device_ms takes at most
 
 
-def device_ms(fn, kernel: str, reps: int = 20):
-    """Device ms a launch of the kernel whose name holds ``kernel``, by
-    torch.profiler over ``reps`` calls of ``fn`` that launch it once each
-    (card only). The profiler sometimes shows fewer launches than were
-    made: such a window is logged in ``PROFILE_MISSES`` and taken again,
-    up to ``PROFILE_TRIES`` windows; None where none showed device time
-    for every launch. A kernel under about 0.05 ms is timed this way:
-    CUDA events around its calls then mostly time the host."""
-    for _ in range(PROFILE_TRIES):
-        ev = [e for e in _profile(fn, reps) if kernel in e.key]
-        total = sum(_device_us(e) for e in ev)
-        n = sum(e.count for e in ev)
-        if total and n == reps:
-            return total / n / 1e3
-        PROFILE_MISSES.append((kernel, n, reps))
-    return None
-
-
-def device_ms_all(fn, reps: int = 20):
-    """Device ms a call of ``fn``: all the device activity torch.profiler
-    records over ``reps`` calls (kernels and copies, whatever their
-    names), a call's share (card only; None where it records none). The
-    yardstick for a library call that launches several kernels."""
+def device_ms_calls(fn, launches: dict, reps: int = 3):
+    """(device ms a call of ``fn``: all the device activity torch.profiler
+    records over ``reps`` calls, kernels and copies whatever their names,
+    a call's share; {kernel name: (device ms a launch, launches a call)})
+    for a ``fn`` that launches each kernel whose name holds a key of
+    ``launches`` that many times a call (card only). The profiler
+    sometimes shows fewer launches than were made: such a window is logged
+    in ``PROFILE_MISSES`` and taken again, up to ``PROFILE_TRIES``
+    windows; (None, {}) where none showed them all with device time."""
     from torch.autograd import DeviceType
-    total = sum(_device_us(e) for e in _profile(fn, reps)
-                if e.device_type == DeviceType.CUDA)
-    return total / reps / 1e3 if total else None
+    for _ in range(PROFILE_TRIES):
+        ev = _profile(fn, reps)
+        per, ok = {}, True
+        for name, n in launches.items():
+            mine = [e for e in ev if name in e.key]
+            seen = sum(e.count for e in mine)
+            if seen != n * reps:
+                PROFILE_MISSES.append((name, seen, n * reps))
+                ok = False
+            elif n:
+                per[name] = (sum(_device_us(e) for e in mine) / seen / 1e3,
+                             n)
+        total = sum(_device_us(e) for e in ev
+                    if e.device_type == DeviceType.CUDA)
+        if ok and total:
+            return total / reps / 1e3, per
+    return None, {}
+
+
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Device ms a launch of the kernel whose name holds ``kernel``, over
+    ``reps`` calls of ``fn`` that launch it once each (device_ms_calls;
+    None where no window showed every launch). A kernel under about 0.05
+    ms is timed this way: CUDA events around its calls then mostly time
+    the host."""
+    per = device_ms_calls(fn, {kernel: 1}, reps)[1]
+    return per[kernel][0] if kernel in per else None
+
+
+# the kernel symbol of each launch count's kernel, for device_ms_calls
+PROFILER_NAMES = {
+    "B1": "fill_cells_kernel", "B2": "join_kernel", "B2b": "join_kernel",
+    "B4": "join_kernel", "B4b": "join_kernel", "B5": "join_kernel",
+    "B5b": "join_kernel", "B5p": "join_kernel", "B3": "repack_kernel",
+    "B8": "repack_kernel", "B11": "repack_kernel", "B12": "repack_kernel",
+    "B6": "seed_pack_rows", "B10": "seed_pack_rows",
+    "B9": "seed_pack_cols", "B7": "seed_kernel"}
+
+
+def profiler_launches(counts: dict) -> dict:
+    """{kernel symbol: launches} of a ``LAUNCHES`` snapshot (kbench's
+    microkernels left out)."""
+    out = {}
+    for k, n in counts.items():
+        name = PROFILER_NAMES.get(k.split("_")[0])
+        if name is not None and n:
+            out[name] = out.get(name, 0) + n
+    return out
 
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:

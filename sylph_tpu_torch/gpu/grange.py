@@ -550,6 +550,17 @@ def _quantize_p(want: float, t=None) -> int:
     return p if t is None else min(p, t)
 
 
+def chunk_slice(skey: torch.Tensor, sw: torch.Tensor, start, end,
+                lane: torch.Tensor):
+    """One chunk's [P] slice (keys, weights) of a sorted sample, gathered
+    on the device from its [start, end) and padded with KEY_PAD and 0."""
+    t = int(skey.shape[0])
+    idx = start + lane
+    m = idx < end
+    idx = idx.clamp(max=max(t - 1, 0))
+    return torch.where(m, skey[idx], KEY_PAD), torch.where(m, sw[idx], 0)
+
+
 class GRangeEngine:
     """Device-resident grange index serving per-sample [G, H] histograms.
 
@@ -786,21 +797,8 @@ class GRangeEngine:
         G = self._GE
         n_chunks = len(gidx.chunk_keys)
         t = int(skey.shape[0])
-        mean = t / n_chunks
-        P = _quantize_p(1.3 * mean + 6.0 * np.sqrt(mean) + 64, t)
+        P, CS, density = self.plan_stream(t, n_matches, cs)
         starts, ends = self._device_slices(skey)
-        if cs is not None:
-            CS = cs
-        elif gidx.nt > 1:
-            CS = cell_cs(max(1, t // n_chunks), gidx.B * gidx.nt)
-        else:
-            CS = sample_cs(max(1, t // n_chunks), gidx.B, granularity=8)
-        # live codes per chunk: the measured match count (x1.25) when the
-        # caller knows it, else the 2x-unique worst case
-        est_codes = ((1.25 * n_matches) if n_matches is not None
-                     else 2.0 * t) / n_chunks
-        density = min(1.0, max(est_codes, 512.0)
-                      / max(1, gidx.B * gidx.CI))
         sw = w_dev.to(torch.int32)
         lane = torch.arange(P, device=skey.device)
         codes_parts, diag_parts = [], []
@@ -808,11 +806,7 @@ class GRangeEngine:
         for i in range(n_chunks):
             cur = nxt                # prefetch overlaps the previous join
             nxt = self._chunk_dev(i + 1) if i + 1 < n_chunks else None
-            idx = starts[i] + lane
-            m = idx < ends[i]
-            idx = idx.clamp(max=max(t - 1, 0))
-            c_key = torch.where(m, skey[idx], KEY_PAD)
-            c_w = torch.where(m, sw[idx], 0)
+            c_key, c_w = chunk_slice(skey, sw, starts[i], ends[i], lane)
             ikey, gidg = cur
             cod, nl, nc, wlost = _chunk_codes(
                 ikey, gidg, c_key, c_w, int(gidx.bases[i]),
@@ -870,6 +864,29 @@ class GRangeEngine:
             keys[s, :n_live[s]] = kd
             w[s, :n_live[s]] = wd
         return keys, w, n_live
+
+    def plan_stream(self, t: int, n_matches: Optional[int] = None,
+                    cs: Optional[int] = None):
+        """(P, CS, density) of hist_device_stream over ``t`` sorted unique
+        keys: the slice length P and the cell capacity from the mean per
+        chunk (``cs`` overrides the capacity), the code density from the
+        live codes per chunk, the measured match count (x1.25) when the
+        caller knows it, else the 2x-unique worst case."""
+        gidx = self.gidx
+        n_chunks = len(gidx.chunk_keys)
+        mean = t / n_chunks
+        P = _quantize_p(1.3 * mean + 6.0 * np.sqrt(mean) + 64, t)
+        if cs is not None:
+            CS = cs
+        elif gidx.nt > 1:
+            CS = cell_cs(max(1, t // n_chunks), gidx.B * gidx.nt)
+        else:
+            CS = sample_cs(max(1, t // n_chunks), gidx.B, granularity=8)
+        est_codes = ((1.25 * n_matches) if n_matches is not None
+                     else 2.0 * t) / n_chunks
+        density = min(1.0, max(est_codes, 512.0)
+                      / max(1, gidx.B * gidx.CI))
+        return P, CS, density
 
     def plan_batched(self, n_live: List[int], T: int,
                      cs: Optional[int] = None):

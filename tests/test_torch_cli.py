@@ -476,8 +476,13 @@ def _port_sources():
     yield os.path.join(_REPO, "chip_smoke.py")
 
 
+# the JAX package, JAX itself, and the JAX side's root modules and scripts
+_FORBIDDEN = ("jax", "jaxlib", "sylph_tpu", "bench", "__graft_entry__",
+              "scripts")
+
+
 def _forbidden(name: str) -> bool:
-    return name.split(".")[0] in ("jax", "jaxlib", "sylph_tpu")
+    return name.split(".")[0] in _FORBIDDEN
 
 
 def test_port_sources_import_no_jax_or_jax_package():
@@ -505,8 +510,8 @@ def test_importing_the_port_loads_no_jax():
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'sylph_tpu')]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{_FORBIDDEN!r}]\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=_REPO,

@@ -1589,3 +1589,46 @@ def test_entry_on_card_matches_cpu(cuda):
     assert torch.equal(h.cpu(), hc) and int(hc[:, 1:].sum()) > 0
     np.testing.assert_allclose(ani.cpu().numpy(), anic.numpy(), rtol=1e-5)
     np.testing.assert_allclose(cov.cpu().numpy(), covc.numpy(), rtol=1e-5)
+
+
+# ---- the dev tools on the card ---------------------------------------------
+
+@pytest.mark.parametrize("nt", ["1", "4"])
+def test_gbench_variants_on_card(cuda, monkeypatch, nt):
+    """gbench at a small size on the card: every variant's histogram equals
+    full's, full's the oracle, and joinstages launches B5 once a chunk in
+    its +compare line."""
+    import functools
+
+    from sylph_tpu_torch import gbench
+    from sylph_tpu_torch.gpu import synth_index as si
+    kw = dict(chunk_slots=1 << 18, target_mean=256)
+    monkeypatch.setattr(si, "synth_index_device", functools.partial(
+        si.synth_index_device, **kw))
+    monkeypatch.setattr(si, "synth_plants_host", functools.partial(
+        si.synth_plants_host, **kw))
+    monkeypatch.setenv("SYLPH_NT", nt)
+    out = gbench.run(genomes=400, reps=1, batches=4, reads=4096, kpg=2000,
+                     device=cuda, variants=[
+                         "prefix", "joinonly", "joinstages", "dense75",
+                         "fill", "seed_t", "fused2"])
+    assert out["checks"]["oracle_hits"] > 0
+    for tag in ("full", "joinonly", "join:+compare", "join:+codes",
+                "full(d0.75)", "full(seed_t)", "full(x2)"):
+        assert out["checks"][tag] == "equal", tag
+    n_chunks = out["index"]["chunks"]
+    assert out["lines"]["join:+compare"]["launches"]["B5_join_counts"] == \
+        n_chunks
+    assert out["lines"]["seed(seed_t)"]["launches"].get("B9_seed_pack_t")
+    assert out["lines"]["seed"]["launches"]["B6_seed_pack"] == 4
+
+
+def test_dupskew_parity_on_card(cuda):
+    from sylph_tpu_torch import dupskew
+    # whole chunks of 16 buckets at the GTDB chunks' mean (the uniform
+    # index is exactly 8 chunks)
+    recs = dupskew.run(1 << 17, 2000, "uniform,a2.0:d1000,a1.2:d300",
+                       (1, 4), 50_000, 1 << 14, cuda, reps=1)
+    assert len(recs) == 6
+    assert all(r["parity"] == "OK" and r["dparity"] == "OK" for r in recs)
+    assert any(r["spill"] for r in recs) and any(r["heavy"] for r in recs)
