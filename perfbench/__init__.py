@@ -1,0 +1,1 @@
+"""perfbench: the benchmark of the PyTorch and CUDA port (see README.md)."""
