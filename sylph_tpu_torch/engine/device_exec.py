@@ -144,7 +144,8 @@ class DeviceContainment:
         self._use_buckets = total >= self.BUCKET_MIN
         self._index_dev, self._bchunks = None, []
         regime = "bucket" if self._use_buckets else "merge"
-        with stage_timer(f"{regime} index build ({total} k-mers)"):
+        with stage_timer(f"{regime} index build",
+                         detail=f"({total} k-mers)"):
             if self._use_buckets:
                 c_min = min(g.c for g in gs)
                 for s in range(0, m, self.CHUNK):
@@ -178,7 +179,8 @@ class DeviceContainment:
         self.offsets = np.concatenate(
             [[0], np.cumsum(self.index.n_kmers.astype(np.int64))])
         self._use_buckets, self._index_dev, self._bchunks = False, None, []
-        with stage_timer(f"sharded index build ({total} k-mers)"):
+        with stage_timer("sharded index build",
+                         detail=f"({total} k-mers)"):
             self._shards = shard_index(self.index.keys, self.devices)
             for d in {d for d in self.devices if d.type == "cuda"}:
                 torch.cuda.synchronize(d)
@@ -203,7 +205,8 @@ class DeviceContainment:
                 gidx = _grange_cache_load(path, total, len(genome_sketches),
                                           self._grange_span)
         if gidx is None:
-            with stage_timer(f"grange index build ({total} k-mers)"):
+            with stage_timer("grange index build",
+                             detail=f"({total} k-mers)"):
                 kmers = np.concatenate(
                     [g.genome_kmers for g in genome_sketches]
                 ).astype(np.uint64)
@@ -297,8 +300,9 @@ class DeviceContainment:
         regime = ("bucketed" if self._use_buckets else "merge"
                   if self._shards is None
                   else f"sharded over {len(self.devices)} devices")
-        with stage_timer(f"device containment join ({self.index.keys.size}"
-                         f" k-mers x {n} sample k-mers, {regime})"):
+        with stage_timer("device containment join",
+                         detail=f"({self.index.keys.size} k-mers x {n} "
+                         f"sample k-mers, {regime})"):
             if self._shards is not None:
                 self.counters["sharded_joins"] += 1
                 counts = merge_join_counts_sharded(self._shards, skey, sw)
@@ -332,11 +336,13 @@ class DeviceContainment:
                     and self._cached(self._hists_cache, s) is None]
             if len(todo) < 2 or not self._grange._one_device():
                 return
-            with stage_timer(f"sample tables ({len(todo)} samples)"):
+            with stage_timer("sample tables",
+                             detail=f"({len(todo)} samples)"):
                 tables = [s.sorted_view() for s in todo]
             self._cache_cap = max(self._cache_cap, len(todo) + 2)
-            with stage_timer(f"batched grange hists ({self._grange.gidx.m} "
-                             f"k-mers x {len(todo)} samples)"):
+            with stage_timer("batched grange hists",
+                             detail=f"({self._grange.gidx.m} k-mers x "
+                             f"{len(todo)} samples)"):
                 hs = self._grange.hists_batched(tables)
             for s, h in zip(todo, hs):
                 self._cache_put(self._hists_cache, s, h)
@@ -344,14 +350,15 @@ class DeviceContainment:
         todo = [s for s in samples if self._cached(self._cache, s) is None]
         if len(todo) < 2 or self._use_buckets:
             return
-        with stage_timer(f"sample tables ({len(todo)} samples)"):
+        with stage_timer("sample tables", detail=f"({len(todo)} samples)"):
             keys, wts = self.upload_tables(todo)
         self._cache_cap = max(self._cache_cap, len(todo) + 2)
         self.counters["batched_joins"] += 1
         sharded = self._shards is not None
         with stage_timer(f"batched {'sharded ' if sharded else ''}"
-                         f"containment join ({self.index.keys.size}"
-                         f" k-mers x {len(todo)} samples x {keys.shape[1]} "
+                         "containment join",
+                         detail=f"({self.index.keys.size} k-mers x "
+                         f"{len(todo)} samples x {keys.shape[1]} "
                          "table slots)"):
             if sharded:
                 self.counters["sharded_joins"] += 1
@@ -425,8 +432,9 @@ class DeviceContainment:
         dv = sample._device_view
         table_fn = _warm_table(sample, dv is not None)
         with stage_timer(
-                f"device grange candidate mask ({g.m} k-mers x "
-                f"{sample.kmers.size} sample k-mers)"):
+                "device grange candidate mask",
+                detail=f"({g.m} k-mers x {sample.kmers.size} sample "
+                "k-mers)"):
             out = None
             if dv is not None:
                 # one-dispatch stream sweep: a single fused probe + mask
@@ -474,7 +482,8 @@ class DeviceContainment:
         dv = sample._device_view
         table_fn = _warm_table(sample, dv is not None)
         with stage_timer(
-                f"device grange hists ({self._grange.gidx.m} k-mers x "
+                "device grange hists",
+                detail=f"({self._grange.gidx.m} k-mers x "
                 f"{sample.kmers.size} sample k-mers)"):
             out = self._grange.hists(None, None, device_view=dv,
                                      table_fn=table_fn)

@@ -535,7 +535,7 @@ def _cohorts(opts: ContainOptions, items, genome_sketches, device_engine):
 
     def load(item):
         rf, is_sketch = item
-        with stage_timer(f"load/sketch sample {rf[0]}"):
+        with stage_timer("load/sketch sample", detail=rf[0]):
             return rf, _load_sample(opts, rf, is_sketch, genome_sketches,
                                     device_engine)
 
@@ -553,7 +553,7 @@ def _cohorts(opts: ContainOptions, items, genome_sketches, device_engine):
                 if sample is None:
                     yield rf, None
                     continue
-                with stage_timer(f"process sample {rf[0]}",
+                with stage_timer("process sample", detail=rf[0],
                                  items=len(genome_sketches)):
                     results = process_sample(opts, sample, genome_sketches,
                                              device_engine)
@@ -570,11 +570,11 @@ def _host_samples(opts: ContainOptions, items, genome_sketches, n_raw: int):
 
     def handle(item):
         rf, is_sketch = item
-        with stage_timer(f"load/sketch sample {rf[0]}"):
+        with stage_timer("load/sketch sample", detail=rf[0]):
             sample = _load_sample(opts, rf, is_sketch, genome_sketches, None)
         if sample is None:
             return rf, None
-        with stage_timer(f"process sample {rf[0]}",
+        with stage_timer("process sample", detail=rf[0],
                          items=len(genome_sketches)):
             return rf, process_sample(opts, sample, genome_sketches, None)
 
@@ -738,12 +738,12 @@ def serve(opts: ContainOptions, pseudotax: bool,
     print_header(opts.pseudotax, out, opts.estimate_unknown)
 
     def one(rfiles: List[str], is_sketch: bool) -> None:
-        with stage_timer(f"load/sketch sample {rfiles[0]}"):
+        with stage_timer("load/sketch sample", detail=rfiles[0]):
             sk = _load_sample(opts, rfiles, is_sketch, genome_sketches,
                               device_engine)
         if sk is None:
             return
-        with stage_timer(f"process sample {rfiles[0]}",
+        with stage_timer("process sample", detail=rfiles[0],
                          items=len(genome_sketches)):
             results = process_sample(opts, sk, genome_sketches,
                                      device_engine)

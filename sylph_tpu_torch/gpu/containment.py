@@ -20,6 +20,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.timing import spanned, wait
 from .keys import KEY_PAD, from_pair_np
 
 _INT64_MIN = -(1 << 63)
@@ -155,6 +156,7 @@ def merge_join_counts_sharded_batched(shards: List[torch.Tensor],
     return np.concatenate([o.cpu().numpy() for o in outs], axis=1)
 
 
+@spanned("join")
 def merge_join_hist(idx_key: torch.Tensor, gids: torch.Tensor,
                     smp_key: torch.Tensor, *, n_genomes: int,
                     n_buckets: int) -> torch.Tensor:
@@ -176,7 +178,9 @@ def genome_hist(gids: torch.Tensor, counts: torch.Tensor, n_genomes: int,
     g = gids.to(torch.int64)
     seg = torch.where(g < G, g * H + counts.to(torch.int64).clamp(max=H - 1),
                       G * H)
-    return _bincount(seg, G * H + 1)[:G * H].view(G, H).to(torch.int32)
+    with wait("join.bincount"):
+        h = _bincount(seg, G * H + 1)
+    return h[:G * H].view(G, H).to(torch.int32)
 
 
 def _bincount(seg: torch.Tensor, n_bins: int) -> torch.Tensor:

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..utils.distributed import allreduce_sum
+from ..utils.timing import span, spanned, wait
 from .bucket_fill import bucket_fill, repack1_flat
 from .bucket_join import (_cell_ids, block_rows, cell_cs, join_codes,
                           join_codes_batched, join_codes_compact,
@@ -468,39 +469,44 @@ def _chunk_codes_batched(ikey, gid_grid, skey_s, sw_s, base: int, *,
     grids are viewed as [B, nt*CS] so each index tile only scans its own
     lane group."""
     S = skey_s.shape[0]
-    sw_s = sw_s.to(torch.int32)
-    fills = [bucket_fill(skey_s[s], sw_s[s], base, width=width, B=B, CS=CS,
-                         nt=nt, subwidth=subwidth) for s in range(S)]
-    dk = torch.stack([k.view(B, nt * CS) for k, _ in fills])
-    dw = torch.stack([w.view(B, nt * CS) for _, w in fills])
-    _raw, _nb, in_range = _cell_ids(key_hi(skey_s), width=width, B=B,
-                                    base=base)
-    w_in = torch.where(in_range, sw_s, 0).sum(dtype=torch.int64)
+    with span("sweep.fill"):
+        sw_s = sw_s.to(torch.int32)
+        fills = [bucket_fill(skey_s[s], sw_s[s], base, width=width, B=B,
+                             CS=CS, nt=nt, subwidth=subwidth)
+                 for s in range(S)]
+        dk = torch.stack([k.view(B, nt * CS) for k, _ in fills])
+        dw = torch.stack([w.view(B, nt * CS) for _, w in fills])
+        _raw, _nb, in_range = _cell_ids(key_hi(skey_s), width=width, B=B,
+                                        base=base)
+        w_in = torch.where(in_range, sw_s, 0).sum(dtype=torch.int64)
     G = n_genomes
     CI = ikey.shape[1]
     kw = dict(G=G, nt=nt, tile=(CI - ov) // nt if nt > 1 else 0)
     TB = block_rows(B)
     capr = _capr(density, TB) if B % TB == 0 else TB
-    if capr < TB:
-        if S == 1:
-            codes, n_live = join_codes_compact(ikey, gid_grid, dk[0], dw[0],
-                                               CAPR=capr, **kw)
-            codes = codes[None]
+    with span("sweep.join"):
+        if capr < TB:
+            if S == 1:
+                codes, n_live = join_codes_compact(ikey, gid_grid, dk[0],
+                                                   dw[0], CAPR=capr, **kw)
+                codes = codes[None]
+            else:
+                codes, n_live = join_codes_compact_batched(
+                    ikey, gid_grid, dk, dw, CAPR=capr, **kw)
+            # each column's codes are top-packed into its first rows, so a
+            # row-major flattening would crowd the live codes into the
+            # leading repack windows; flatten column-major (as the JAX
+            # package does)
+            codes = codes.transpose(1, 2).contiguous()
+            density = density * TB / capr
         else:
-            codes, n_live = join_codes_compact_batched(ikey, gid_grid, dk,
-                                                       dw, CAPR=capr, **kw)
-        # each column's codes are top-packed into its first rows, so a
-        # row-major flattening would crowd the live codes into the leading
-        # repack windows; flatten column-major (as the JAX package does)
-        codes = codes.transpose(1, 2).contiguous()
-        density = density * TB / capr
-    else:
-        codes = (join_codes(ikey, gid_grid, dk[0], dw[0], **kw)[None]
-                 if S == 1 else
-                 join_codes_batched(ikey, gid_grid, dk, dw, **kw))
-        n_live = (codes != SENT).sum(dtype=torch.int64)
-    codes = _compact_codes(codes.reshape(-1), density)
-    n_comp = (codes != SENT).sum(dtype=torch.int64)
+            codes = (join_codes(ikey, gid_grid, dk[0], dw[0], **kw)[None]
+                     if S == 1 else
+                     join_codes_batched(ikey, gid_grid, dk, dw, **kw))
+            n_live = (codes != SENT).sum(dtype=torch.int64)
+    with span("sweep.repack"):
+        codes = _compact_codes(codes.reshape(-1), density)
+        n_comp = (codes != SENT).sum(dtype=torch.int64)
     return (codes, n_live, n_comp,
             (w_in - dw.sum(dtype=torch.int64)).abs())
 
@@ -510,7 +516,8 @@ def hist_from_codes(codes: torch.Tensor, *, n_genomes: int) -> torch.Tensor:
     SENT (-1) lands in the last bin, G*H."""
     G, H = n_genomes, HIST_H
     seg = torch.where(codes != SENT, codes.to(torch.int64), G * H)
-    return _bincount(seg, G * H + 1)
+    with wait("sweep.bincount"):
+        return _bincount(seg, G * H + 1)
 
 
 def _chunk_hist_lossless(ikey, gid_grid, skey, sw, base: int, *,
@@ -525,9 +532,11 @@ def _chunk_hist_lossless(ikey, gid_grid, skey, sw, base: int, *,
     live = (grid > 0) & (gid_grid < G)
     seg = torch.where(live, gid_grid.to(torch.int64) * H
                       + torch.clamp(grid, max=H - 1), G * H)
-    return _bincount(seg, G * H + 1)
+    with wait("sweep.bincount"):
+        return _bincount(seg, G * H + 1)
 
 
+@spanned("fold")
 def fold_stream(keys: torch.Tensor):
     """(distinct keys int64 in uint64 order, uint8 weights) of an
     occurrence stream of int64 keys (any shape and order, -1 pads
@@ -536,8 +545,11 @@ def fold_stream(keys: torch.Tensor):
     which runs on ``u64_order`` as the JAX package sorts its uint64 keys;
     weights clamp at H-1 losslessly, as in ``upload_sample``."""
     flat = keys.reshape(-1)
-    live = torch.sort(u64_order(flat[flat != KEY_PAD])).values
-    skey, cnt = torch.unique_consecutive(live, return_counts=True)
+    with wait("fold.mask"):
+        live = flat[flat != KEY_PAD]
+    live = torch.sort(u64_order(live)).values
+    with wait("fold.unique"):
+        skey, cnt = torch.unique_consecutive(live, return_counts=True)
     return u64_order(skey), cnt.clamp(max=HIST_H - 1).to(torch.uint8)
 
 
@@ -730,10 +742,11 @@ class GRangeEngine:
         losslessly (histogram bins clamp there), so they cross to the
         device as uint8."""
         dev = self.device if device is None else device
-        skey = torch.from_numpy(np.ascontiguousarray(
-            skmers_u64, np.uint64).view(np.int64)).to(dev)
-        sw = torch.from_numpy(np.minimum(scounts, HIST_H - 1).astype(
-            np.uint8)).to(dev)
+        with wait("sweep.upload"):
+            skey = torch.from_numpy(np.ascontiguousarray(
+                skmers_u64, np.uint64).view(np.int64)).to(dev)
+            sw = torch.from_numpy(np.minimum(scounts, HIST_H - 1).astype(
+                np.uint8)).to(dev)
         return skey, sw
 
     # ---- the streamed device-resident sample --------------------------
@@ -762,9 +775,11 @@ class GRangeEngine:
         """[start, end) per chunk of a device-sorted sample (one small
         fetch), equal to slice_sample on the host-sorted table."""
         starts, ends = self._device_slices(skey)
-        se = torch.stack((starts, ends), dim=1).cpu().numpy()
+        with wait("sweep.slices"):
+            se = torch.stack((starts, ends), dim=1).cpu().numpy()
         return [(int(s), int(e)) for s, e in se]
 
+    @spanned("sweep")
     def hist_device_stream(self, skey: torch.Tensor,
                            w_dev: Optional[torch.Tensor] = None,
                            n_matches: Optional[int] = None,
@@ -797,27 +812,30 @@ class GRangeEngine:
         G = self._GE
         n_chunks = len(gidx.chunk_keys)
         t = int(skey.shape[0])
-        P, CS, density = self.plan_stream(t, n_matches, cs)
-        starts, ends = self._device_slices(skey)
-        sw = w_dev.to(torch.int32)
-        lane = torch.arange(P, device=skey.device)
+        with span("sweep.plan"):
+            P, CS, density = self.plan_stream(t, n_matches, cs)
+            starts, ends = self._device_slices(skey)
+            sw = w_dev.to(torch.int32)
+            lane = torch.arange(P, device=skey.device)
         codes_parts, diag_parts = [], []
         nxt = self._chunk_dev(0) if n_chunks else None
         for i in range(n_chunks):
-            cur = nxt                # prefetch overlaps the previous join
-            nxt = self._chunk_dev(i + 1) if i + 1 < n_chunks else None
-            c_key, c_w = chunk_slice(skey, sw, starts[i], ends[i], lane)
-            ikey, gidg = cur
-            cod, nl, nc, wlost = _chunk_codes(
-                ikey, gidg, c_key, c_w, int(gidx.bases[i]),
-                width=gidx.width, B=gidx.B, CS=CS, n_genomes=G,
-                density=density, nt=gidx.nt, subwidth=gidx.subwidth,
-                ov=gidx.ov)
-            codes_parts.append(cod)
-            diag_parts.append((nl - nc).abs() + wlost)
-        hist = hist_from_codes(torch.cat(codes_parts), n_genomes=G)
-        probe = torch.stack((torch.stack(diag_parts).sum(),
-                             (ends - starts).max()))
+            with span("sweep.chunk"):
+                cur = nxt            # prefetch overlaps the previous join
+                nxt = self._chunk_dev(i + 1) if i + 1 < n_chunks else None
+                c_key, c_w = chunk_slice(skey, sw, starts[i], ends[i], lane)
+                ikey, gidg = cur
+                cod, nl, nc, wlost = _chunk_codes(
+                    ikey, gidg, c_key, c_w, int(gidx.bases[i]),
+                    width=gidx.width, B=gidx.B, CS=CS, n_genomes=G,
+                    density=density, nt=gidx.nt, subwidth=gidx.subwidth,
+                    ov=gidx.ov)
+                codes_parts.append(cod)
+                diag_parts.append((nl - nc).abs() + wlost)
+        with span("sweep.hist"):
+            hist = hist_from_codes(torch.cat(codes_parts), n_genomes=G)
+            probe = torch.stack((torch.stack(diag_parts).sum(),
+                                 (ends - starts).max()))
         return hist, probe, P
 
     def candidate_mask_stream(self, device_view, mask_fn,
@@ -837,7 +855,9 @@ class GRangeEngine:
                                                  n_matches=n_matches)
         mask = mask_fn(hist[:G * H])
         matches = hist[:G * H].sum().reshape(1)
-        v = torch.cat([probe, matches, mask.to(torch.int64)]).cpu().numpy()
+        with wait("sweep.mask"):
+            v = torch.cat([probe, matches, mask.to(torch.int64)]
+                          ).cpu().numpy()
         if int(v[0]) != 0 or int(v[1]) > P:
             log.debug("mask stream conservation check failed; the "
                       "per-chunk path follows")
@@ -981,7 +1001,8 @@ class GRangeEngine:
         self.counters["batched_sweeps"] += 1
         keys, w, n_live = self.upload_tables(tables)
         hist, probe, P = self.hist_device_stream_batched(keys, w, n_live)
-        v = probe.cpu().numpy()
+        with wait("sweep.probe"):
+            v = probe.cpu().numpy()
         if int(v[0]) != 0 or int(v[1]) > P:
             log.info("batched grange sweep of %d samples failed its "
                      "conservation check (difference %d, longest slice %d, "
@@ -989,13 +1010,15 @@ class GRangeEngine:
                      int(v[0]), int(v[1]), P)
             self.counters["batched_rejected"] += 1
             return np.stack([self.hists(k, c) for k, c in tables])
-        rows = hist.cpu().numpy()
+        with wait("sweep.fetch"):
+            rows = hist.cpu().numpy()
         out = np.stack([self._fold_heavy(r) for r in rows])
         if self.gidx.spill_kmers.size:
             for s, (k, c) in enumerate(tables):
                 out[s] += self._spill_hist(np.asarray(k, np.uint64), c)
         return out
 
+    @spanned("sweep.chunks")
     def hists(self, skmers_u64: Optional[np.ndarray],
               scounts: Optional[np.ndarray], mask_fn=None,
               device_view=None, table_fn=None) -> np.ndarray:
@@ -1073,8 +1096,9 @@ class GRangeEngine:
             by_dev.setdefault(p[0], []).append(j)
         bad, live = set(), {}
         for js in by_dev.values():
-            fetched = torch.stack([torch.stack(parts[j][2:4])
-                                   for j in js]).cpu().numpy()
+            with wait("sweep.probe"):
+                fetched = torch.stack([torch.stack(parts[j][2:4])
+                                       for j in js]).cpu().numpy()
             for j, (dv, nlv) in zip(js, fetched):
                 live[j] = int(nlv)
                 if dv != 0:
@@ -1100,7 +1124,8 @@ class GRangeEngine:
             d_true = max(live_total / n, 1e-6)
             dq = min(0.25, 2.0 ** np.ceil(np.log2(d_true)) * 2.0)
             cc2 = _compact_codes(cc, dq)
-            n2 = int((cc2 != SENT).sum())
+            with wait("sweep.recompact"):
+                n2 = int((cc2 != SENT).sum())
             return cc2 if n2 == live_total else cc
 
         if mask_fn is not None and not bad and gidx.n_heavy == 0 \
@@ -1110,14 +1135,18 @@ class GRangeEngine:
             (good,) = codes_by_dev.values()
             cc = _recompact(torch.cat(good) if len(good) > 1 else good[0])
             h_dev = hist_from_codes(cc, n_genomes=G)
-            return mask_fn(h_dev[:G * H]).cpu().numpy()
+            mask = mask_fn(h_dev[:G * H])
+            with wait("sweep.mask"):
+                return mask.cpu().numpy()
         # one bincount per device over its good code streams, summed here
         hist = np.zeros(G * H + 1, np.int64)
         for good in codes_by_dev.values():
             cc = torch.cat(good) if len(good) > 1 else good[0]
             if len(codes_by_dev) == 1:
                 cc = _recompact(cc)
-            hist += hist_from_codes(cc, n_genomes=G).cpu().numpy()
+            h = hist_from_codes(cc, n_genomes=G)
+            with wait("sweep.fetch"):
+                hist += h.cpu().numpy()
         for j in sorted(bad):
             # compaction or cell-capacity overflow: lossless redo at 4x
             # the sample capacity, on the chunk's own device
@@ -1126,7 +1155,8 @@ class GRangeEngine:
             h = _chunk_hist_lossless(
                 ikey, gidg, *smp, int(gidx.bases[ci]), width=gidx.width,
                 B=gidx.B, CS=4 * CS, n_genomes=G)
-            hist += h.cpu().numpy()
+            with wait("sweep.fetch"):
+                hist += h.cpu().numpy()
         out = self._fold_heavy(hist)
         if gidx.spill_kmers.size and self._owns_sides():
             out += self._spill_hist(*_tbl())

@@ -37,6 +37,7 @@ import torch.distributed as dist
 from ..engine.device_sketch import _pack16_rows
 from ..kmer.hashing import BYTE_TO_SEQ_NP
 from ..utils.distributed import host_collective
+from ..utils.timing import span
 from .bucket_fill import condense_stream
 from .containment import compact_rows, merge_join_hist
 from .grange import resolve_device
@@ -96,18 +97,20 @@ def _sketch_compact(bases: torch.Tensor, lengths: torch.Tensor, *, c: int,
     B6, [cap_rows, N] from B9 (one read per column), or the fallback's
     [ceil(N(L-k+1)/512), compaction_cap(c)] row-sorted windows
     (``_seed_route`` picks)."""
-    N, L = bases.shape
-    bases = bases.to(torch.uint8).contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
-    route = _seed_route(N, L, c, k)
-    if route == "B9":
-        return seed_pack_t(bases.t().contiguous(), lengths, c=c, k=k)
-    if route == "B6":
-        return seed_pack(bases, lengths, c=c, k=k,
-                         lanes=min(128, 4 * L // c + 8))
-    hash_, keep = _seed(bases, lengths, c=c, k=k)
-    W = L - k + 1                       # drop structurally dead columns
-    return compact_rows(hash_[:, :W], keep[:, :W], _ROW, compaction_cap(c))
+    with span("seed.pack"):
+        N, L = bases.shape
+        bases = bases.to(torch.uint8).contiguous()
+        lengths = lengths.to(torch.int32).contiguous()
+        route = _seed_route(N, L, c, k)
+        if route == "B9":
+            return seed_pack_t(bases.t().contiguous(), lengths, c=c, k=k)
+        if route == "B6":
+            return seed_pack(bases, lengths, c=c, k=k,
+                             lanes=min(128, 4 * L // c + 8))
+        hash_, keep = _seed(bases, lengths, c=c, k=k)
+        W = L - k + 1                   # drop structurally dead columns
+        return compact_rows(hash_[:, :W], keep[:, :W], _ROW,
+                            compaction_cap(c))
 
 
 def pack_reads(seqs: List[bytes], length: int,
@@ -157,9 +160,10 @@ def sketch_batch(bases, lengths, *, c: int, k: int, device="cuda"):
     a 0-d int32). Batches accumulate on the device and ``finish_profile``
     joins them at once, so each genome k-mer joins once a sample."""
     dev = resolve_device(device)
-    keys = _sketch_compact(_tensor(bases, dev), _tensor(lengths, dev), c=c,
-                           k=k)
-    return keys, _count(keys)
+    with span("seed"):
+        keys = _sketch_compact(_tensor(bases, dev), _tensor(lengths, dev),
+                               c=c, k=k)
+        return keys, _count(keys)
 
 
 def sketch_batch_packed(packed, lengths, *, c: int, k: int, device="cuda"):
@@ -167,9 +171,11 @@ def sketch_batch_packed(packed, lengths, *, c: int, k: int, device="cuda"):
     uint32 bits, as int32 or uint32): unpacked on the device, then the
     fused kernel."""
     dev = resolve_device(device)
-    bases = unpack_bases(_tensor(packed, dev)).to(torch.uint8)
-    keys = _sketch_compact(bases, _tensor(lengths, dev), c=c, k=k)
-    return keys, _count(keys)
+    with span("seed"):
+        with span("seed.unpack"):
+            bases = unpack_bases(_tensor(packed, dev)).to(torch.uint8)
+        keys = _sketch_compact(bases, _tensor(lengths, dev), c=c, k=k)
+        return keys, _count(keys)
 
 
 def finish_profile(all_keys, idx_key, gids, n_kmers, *, k: int,

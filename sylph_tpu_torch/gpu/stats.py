@@ -20,6 +20,7 @@ import torch
 
 from ..constants import (CUTOFF_PVALUE, MAX_MEDIAN_FOR_MEAN_FINAL_EST,
                          MEDIAN_ANI_THRESHOLD, SAMPLE_SIZE_CUTOFF)
+from ..utils.timing import spanned
 
 _TAIL_P = float(np.float32(np.float64(1.0) - np.float64(CUTOFF_PVALUE)))
 
@@ -39,6 +40,7 @@ class GenomeStats(NamedTuple):
     valid: torch.Tensor         # bool: passes min_ani & size gates
 
 
+@spanned("stats")
 def stats_from_histograms(hist: torch.Tensor, n_kmers: torch.Tensor, *,
                           k: int, min_ani: float,
                           min_count_correct: float = 3.0,
