@@ -140,7 +140,8 @@ and drives the port's main path once, at database scale:
      dense slices) and B3 launch on each good request (counts set to 0
      before each line); torch.cuda.memory_allocated() after each request,
      and after the repeat at most the first's plus the device bytes the
-     engine's per-sample caches hold; each request's wall time and stage
+     engine's per-sample caches and its captured stream sweeps' static
+     buffers hold; each request's wall time and stage
      split; the repeat runs inside a torch.profiler window, whose kernels
      and copies give the device's busy and idle share of its wall time.
      (x) On (j)'s merge database: ``api.Profiler(db)`` on the card,
@@ -2518,7 +2519,9 @@ def _serve_phase(work, db, reads, samples, host_path, main_tsv):
     deep.sylsp's dense slices, as on the main path) launch on each good
     request, B7 and B8 on the raw one; device memory after the repeat is
     at most the first good request's plus the device bytes the engine's
-    per-sample caches hold."""
+    per-sample caches hold and the static buffers of the stream sweeps it
+    captured (``GRangeEngine.graph_buffers``, in the allocator's 512-byte
+    blocks, and the two blocks of the CUDA generator's graph state)."""
     import io
 
     import torch
@@ -2601,16 +2604,26 @@ def _serve_phase(work, db, reads, samples, host_path, main_tsv):
               for ref, _ in cache.values()]
     cache_bytes = sum(_view_bytes(s._device_view) for s in cached
                       if getattr(s, "_device_view", None) is not None)
+    graph_bytes = sum(-(-t.numel() * t.element_size() // 512) * 512
+                      for t in (dc._grange.graph_buffers()
+                                if dc._grange is not None else ()))
+    if graph_bytes:
+        # and what torch keeps while any CUDA graph lives: the CUDA
+        # generator's seed and offset for replays, two one-element int64
+        # tensors allocated at the first capture (a 512-byte block each)
+        graph_bytes += 2 * 512
     growth = done[6]["mem"] - done[0]["mem"]
     case = ("the caches hold host arrays only" if not cache_bytes else
             f"the caches hold {cache_bytes} device bytes of sample views")
     print("serve device memory: " + json.dumps(dict(
         after_first=done[0]["mem"], after_repeat=done[6]["mem"],
         growth=growth, cache_device_bytes=cache_bytes,
-        cached_samples=len(cached), case=case)))
-    if growth > cache_bytes:
+        cached_samples=len(cached), case=case,
+        graph_buffer_bytes=graph_bytes)))
+    if growth > cache_bytes + graph_bytes:
         _fail(f"(w) device memory grew {growth} B between the first request "
-              f"and the repeat, above the caches' {cache_bytes} B")
+              f"and the repeat, above the caches' {cache_bytes} B and the "
+              f"captured sweeps' {graph_bytes} B")
     busy_ms, n_kernels = _device_union_ms(trace)
     wall_ms = done[6]["wall_s"] * 1e3
     print("serve warm request under torch.profiler (sample.sylsp): "
@@ -2620,8 +2633,9 @@ def _serve_phase(work, db, reads, samples, host_path, main_tsv):
                             kernel_events=n_kernels)))
     if not n_kernels:
         _fail("(w) the warm request's trace shows no kernel")
-    print(f"check (w): device memory grew {growth} B (bound {cache_bytes} "
-          f"B: {case}); serve total {total:.3f} s")
+    print(f"check (w): device memory grew {growth} B (bound "
+          f"{cache_bytes + graph_bytes} B: {case}, and {graph_bytes} B of "
+          f"captured sweeps' buffers); serve total {total:.3f} s")
     del dc, engines
     torch.cuda.synchronize()
 

@@ -8,9 +8,14 @@ anything on the CPU, never needs nvcc.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch and
 ``check`` raises on a non-zero code. ``LAUNCHES`` counts kernel launches per
-kernel; a wrapper bumps its count only where it launches its kernel.
+kernel; a wrapper bumps its count only where it launches its kernel. A
+kernel captured into a CUDA graph counts when a replay launches it, not
+when the capture records it: inside ``recording_launches`` the capturing
+thread's launches go to the capture's own counts, while other threads
+(an ingest's loaders) go on counting in ``LAUNCHES``.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -47,6 +52,7 @@ BUILD_SECONDS = {}             # source name -> wall seconds of its nvcc
 _LIBS = {}
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()   # kernels launch from the ingest's threads
+_RECORDING = threading.local()   # .counts: this thread's open capture
 
 
 def card_line() -> str:
@@ -67,9 +73,36 @@ def reset_launches() -> None:
 
 def count_launch(name: str) -> None:
     """Add one to ``name``'s launch count (wrappers call it where they
-    launch their kernel, and nowhere else)."""
+    launch their kernel, and nowhere else), or to the calling thread's
+    open ``recording_launches``."""
+    rec = getattr(_RECORDING, "counts", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + 1
+        return
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Inside it, the launches this thread makes count in the yielded dict
+    ({name: launches}) and not in ``LAUNCHES``: a graph capture records
+    kernels that run only when a replay launches them
+    (``count_launches``). Launches from other threads count as usual."""
+    prev = getattr(_RECORDING, "counts", None)
+    _RECORDING.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _RECORDING.counts = prev
+
+
+def count_launches(counts: dict) -> None:
+    """Add each of ``counts`` ({name: launches}) to its launch count: a
+    replay of a captured graph adds the launches it holds."""
+    with _COUNT_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

@@ -18,29 +18,40 @@ GPUs, in one or several processes (counterpart of sylph_tpu/tpu/grange.py).
     index slot against its cell's sample lanes and emits column-compacted
     gid*64 + multiplicity codes (B4 when the column compaction would not
     shrink the block), and the B3 kernel
-    repacks the sparse code stream. One bincount over all chunks' codes
-    gives the per-genome coverage histograms [G, 64] that pass-1 statistics
-    need. Conservation scalars (fill weight in == out, live codes before ==
-    after compaction) are checked per chunk; a failed chunk is recomputed
-    by the lossless full-grid path (B1 + B5 + bincount).
+    repacks the sparse code stream. One histogram over all chunks' codes
+    (a scatter-add of known size, no host sync) gives the per-genome
+    coverage histograms [G, 64] that pass-1 statistics need. Conservation
+    scalars (fill weight in == out, live codes before == after compaction)
+    are checked per chunk; a failed chunk is recomputed by the lossless
+    full-grid path (B1 + B5 + bincount).
 
   per batch of samples (device, hists_batched):
     S padded tables share one sweep: per chunk S fills, one batched compare
     (B2b, or B4b on dense batches) whose codes carry a sample tag s*G*64,
-    one repack chain and, at the end, one bincount over S*G*64 bins. A
+    one repack chain and, at the end, one histogram over S*G*64 bins. A
     batch that fails its conservation check is swept again per sample.
 
   several devices and processes (sylph_tpu/tpu/grange.py:1032-1095):
     chunk i lives on ``devices[i % n]`` (resident or streamed alike) and its
     kernels launch there, on the sample slice moved to that device; each
     device's conservation checks come back in one fetch and its good code
-    streams go through one bincount, and the host sums the devices'
+    streams go through one histogram, and the host sums the devices'
     histograms. With ``process_span=(i, n)`` the engine owns only the
     chunks j with j % n == i and ``hists`` returns this process's partial
     histogram (spill accounted by process 0 only); ``merge_process_hists``
     sums the partials over the process group. The streamed device view,
     the device mask and the batched sweeps are one-device paths, as in the
     JAX package: on several devices or under a span they are not taken.
+
+  the stream sweep as one CUDA graph (hist_device_stream):
+    on one CUDA device and process, with every chunk resident and no
+    heavy runs, everything after the fold (device slices, the chunk loop,
+    histogram and probe) is captured once per ``SweepShape`` (the
+    integers baked into its launches, and the static input buffer's
+    length) into one memory pool shared by the engine's graphs: the first
+    sample of a shape runs eagerly and captures, each later one is copied
+    into the static buffer and replayed, one launch on the host for some
+    40 x 20 kernels. Elsewhere it runs eagerly, kernel by kernel.
 
 The CUDA path is fixed (fill, fused compact codes, repack); the JAX
 package's TPU switches are gone and their defaults are module constants.
@@ -56,7 +67,8 @@ import torch
 
 from ..utils.distributed import allreduce_sum
 from ..utils.timing import span, spanned, wait
-from .bucket_fill import bucket_fill, repack1_flat
+from . import _cuda
+from .bucket_fill import _n_windows, bucket_fill, repack1_flat
 from .bucket_join import (_cell_ids, block_rows, cell_cs, join_codes,
                           join_codes_batched, join_codes_compact,
                           join_codes_compact_batched, join_counts,
@@ -70,11 +82,19 @@ _EMPTY_I32 = np.empty(0, np.int32)
 _EMPTY_PTR = np.zeros(1, np.int64)
 
 _HEAVY_RUN = 16               # duplication runs longer than this -> CSR
-# code-compaction stop density of the repack chain (see _compact_codes)
+# code-compaction stop density of the repack chain (see _repack_chain)
 _CODE_DENSITY = 0.5
 # final-stream re-compaction floor: below this concatenated size the
 # histogram is cheap enough that the extra chain + verify fetch lose
 _RECOMPACT_MIN = 1 << 22
+# spare bins a histogram's SENT lanes spread over (hist_from_codes)
+SENT_BINS = 1024
+# captured stream sweeps an engine keeps; a shape past them runs eagerly
+# and is not captured (no eviction, so a stream of many shapes costs
+# what an eager sweep costs, never a capture a sample). Streams of fresh
+# benchmark samples make 1-3 shapes a traffic; the plan's quantisation
+# gives about 14 an octave of sample size
+_GRAPHS_MAX = 32
 
 
 def resolve_device(device) -> torch.device:
@@ -405,21 +425,29 @@ def _gather_slices(keys: torch.Tensor, sw: torch.Tensor,
             torch.where(m, sw.gather(1, idx), 0))
 
 
-def _compact_codes(codes: torch.Tensor, density: float) -> torch.Tensor:
-    """Repack (B3) a sparse SENT-coded int32 stream until it reaches the
-    stop density. Windows widen as the stream gets sparser (up to 32k
-    slots); the first pass keeps a 4x-expectation capacity, later passes
-    1.5x + 8 sigma. Capacities are conservation-checked by the caller
-    (n_live == n_comp), so overflow is detected, never silent."""
-    v = codes.reshape(-1)
-    d = max(density, 1e-6)
-    mult = 4.0
-    while (step := _repack_step(v.numel(), d, mult)) is not None:
-        row, cap = step
+def _repack_codes(v: torch.Tensor, steps) -> torch.Tensor:
+    """Repack (B3) a sparse SENT-coded int32 stream by the (row, cap)
+    passes ``steps`` (``_repack_chain``'s). Capacities are
+    conservation-checked by the caller (n_live == n_comp), so overflow is
+    detected, never silent."""
+    for row, cap in steps:
         v = repack1_flat(v, row=row, cap=cap)
+    return v
+
+
+def _repack_chain(n: int, density: float) -> tuple:
+    """((row, cap), ...) of the repack passes over an n-slot code stream at
+    density ``density``: windows widen as the stream gets sparser (up to
+    32k slots); the first pass keeps a 4x-expectation capacity, later
+    passes 1.5x + 8 sigma."""
+    steps, d, mult = [], max(density, 1e-6), 4.0
+    while (step := _repack_step(n, d, mult)) is not None:
+        row, cap = step
+        steps.append(step)
+        n = _n_windows(n, row) * cap
         d = d * row / cap
         mult = 1.5
-    return v
+    return tuple(steps)
 
 
 def _repack_step(n: int, d: float, mult: float):
@@ -444,6 +472,20 @@ def _capr(density: float, TB: int) -> int:
     return min(TB, max(8, -(-cap // 8) * 8))
 
 
+def _code_plan(density: float, B: int, CI: int, S: int = 1):
+    """(capr, repack steps) that a chunk's compare and repack chain bake
+    into their launches for S samples at code density ``density``: the
+    compare's per-column capacity (TB where the column compaction would
+    not shrink the block, and B4 runs instead of B2) and the passes of
+    ``_repack_chain`` over the compare's output."""
+    TB = block_rows(B)
+    capr = _capr(density, TB) if B % TB == 0 else TB
+    if capr < TB:
+        return capr, _repack_chain(S * B // TB * capr * CI,
+                                   density * TB / capr)
+    return capr, _repack_chain(S * B * CI, density)
+
+
 def _chunk_codes(ikey, gid_grid, skey, sw, base: int, **kw):
     """One chunk, one sample: _chunk_codes_batched at S = 1 (kernels B1, B2
     or B4, B3)."""
@@ -453,8 +495,8 @@ def _chunk_codes(ikey, gid_grid, skey, sw, base: int, **kw):
 
 def _chunk_codes_batched(ikey, gid_grid, skey_s, sw_s, base: int, *,
                          width: int, B: int, CS: int, n_genomes: int,
-                         density: float, nt: int = 1, subwidth: int = 0,
-                         ov: int = 0):
+                         density: Optional[float] = None, plan=None,
+                         nt: int = 1, subwidth: int = 0, ov: int = 0):
     """S sample slices ([S, P] sorted keys and weights) x one chunk: per
     sample the fill (B1), then one compare/code emission over the batch
     (B2b, or B4b when the column compaction would not shrink the block; B2
@@ -467,7 +509,9 @@ def _chunk_codes_batched(ikey, gid_grid, skey_s, sw_s, base: int, *,
     and w_lost == 0 (sample cell capacity CS honored). ``nt`` > 1:
     hash-tiled index layout — CS is the per-CELL lane capacity and the cell
     grids are viewed as [B, nt*CS] so each index tile only scans its own
-    lane group."""
+    lane group. ``plan``: (capr, repack steps) as ``_code_plan`` gives
+    them for the code density ``density``, computed here where not
+    given."""
     S = skey_s.shape[0]
     with span("sweep.fill"):
         sw_s = sw_s.to(torch.int32)
@@ -483,7 +527,8 @@ def _chunk_codes_batched(ikey, gid_grid, skey_s, sw_s, base: int, *,
     CI = ikey.shape[1]
     kw = dict(G=G, nt=nt, tile=(CI - ov) // nt if nt > 1 else 0)
     TB = block_rows(B)
-    capr = _capr(density, TB) if B % TB == 0 else TB
+    capr, steps = plan if plan is not None else _code_plan(density, B, CI,
+                                                           S)
     with span("sweep.join"):
         if capr < TB:
             if S == 1:
@@ -498,26 +543,41 @@ def _chunk_codes_batched(ikey, gid_grid, skey_s, sw_s, base: int, *,
             # leading repack windows; flatten column-major (as the JAX
             # package does)
             codes = codes.transpose(1, 2).contiguous()
-            density = density * TB / capr
         else:
             codes = (join_codes(ikey, gid_grid, dk[0], dw[0], **kw)[None]
                      if S == 1 else
                      join_codes_batched(ikey, gid_grid, dk, dw, **kw))
             n_live = (codes != SENT).sum(dtype=torch.int64)
     with span("sweep.repack"):
-        codes = _compact_codes(codes.reshape(-1), density)
+        codes = _repack_codes(codes.reshape(-1), steps)
         n_comp = (codes != SENT).sum(dtype=torch.int64)
     return (codes, n_live, n_comp,
             (w_in - dw.sum(dtype=torch.int64)).abs())
 
 
-def hist_from_codes(codes: torch.Tensor, *, n_genomes: int) -> torch.Tensor:
+def hist_from_codes(codes: torch.Tensor, *, n_genomes: int,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[G*H+1] int64 histogram of a concatenated gid*H+mult code stream;
-    SENT (-1) lands in the last bin, G*H."""
-    G, H = n_genomes, HIST_H
-    seg = torch.where(codes != SENT, codes.to(torch.int64), G * H)
-    with wait("sweep.bincount"):
-        return _bincount(seg, G * H + 1)
+    SENT (-1) lands in the last bin, G*H.
+
+    No host sync (``torch.bincount`` reads the codes' min and max on the
+    host): a scatter-add into a buffer of known size, ``out`` ([G*H +
+    SENT_BINS] int64, overwritten; the result is a view of it) or a new
+    one. About half a repacked stream is SENT, and atomic adds into one
+    bin queue, so the SENT lanes spread over SENT_BINS spare bins whose
+    sum then lands in bin G*H."""
+    nb = n_genomes * HIST_H
+    v = codes.reshape(-1)
+    if out is None:
+        out = torch.empty(nb + SENT_BINS, dtype=torch.int64, device=v.device)
+    out.zero_()
+    spare = torch.arange(v.numel(), device=v.device)
+    spare.bitwise_and_(SENT_BINS - 1).add_(nb)
+    seg = torch.where(v != SENT, v, spare)
+    one = torch.ones((), dtype=torch.int64, device=v.device)
+    out.index_add_(0, seg, one.expand(v.numel()))
+    out[nb] = out[nb:].sum()
+    return out[:nb + 1]
 
 
 def _chunk_hist_lossless(ikey, gid_grid, skey, sw, base: int, *,
@@ -560,6 +620,40 @@ def _quantize_p(want: float, t=None) -> int:
     q = np.ceil(np.log2(want) * 4.0) / 4.0
     p = int(-(-(2.0 ** q) // 2048) * 2048)
     return p if t is None else min(p, t)
+
+
+class SweepShape(NamedTuple):
+    """What hist_device_stream bakes into its launches for a sample, and
+    the key of its captured graph: the slice length, the cell capacity,
+    the compare's per-column capacity, the repack chain's (row, cap)
+    passes, and the length of the static input buffer a replay copies the
+    sample into (the next power of two of the sample, at least 1024, as
+    ``upload_tables`` pads)."""
+    P: int
+    CS: int
+    capr: int
+    steps: tuple
+    Tcap: int
+
+
+def _tcap(t: int) -> int:
+    return max(1024, 1 << int(np.ceil(np.log2(max(t, 1)))))
+
+
+def stage_sample(keys: torch.Tensor, w: torch.Tensor, skey: torch.Tensor,
+                 w_dev: torch.Tensor) -> None:
+    """Copy a sorted sample (``skey``, ``w_dev``) into the static buffers
+    ``keys`` (int64) and ``w`` (int32) of a longer length, with a KEY_PAD
+    and 0 tail. The tail never enters a slice: KEY_PAD is u64::MAX, which
+    no kept hash is, so no chunk edge is either, and the tail sorts after
+    every chunk's last hash in uint64 order (as in ``batched_slices``);
+    ``chunk_slice``'s mask cuts each slice at its end, so clamping at the
+    buffer's end gives the slices that clamping at the sample's gives."""
+    t = int(skey.shape[0])
+    keys[:t].copy_(skey)
+    keys[t:].fill_(KEY_PAD)
+    w[:t].copy_(w_dev)
+    w[t:].zero_()
 
 
 def chunk_slice(skey: torch.Tensor, sw: torch.Tensor, start, end,
@@ -615,9 +709,20 @@ class GRangeEngine:
         # and batched ones whose probe sent them back to per-sample sweeps;
         # for streamed samples, device sorts, masks from the one-fetch
         # stream sweep, and stream sweeps whose probe sent them back
+        # and stream sweeps replayed from a captured graph, those that ran
+        # eagerly and captured their shape's graph, and those that ran
+        # eagerly where no graph is used
         self.counters = {"hists_sweeps": 0, "batched_sweeps": 0,
                          "batched_rejected": 0, "device_view_sorts": 0,
-                         "mask_stream_masks": 0, "mask_stream_rejected": 0}
+                         "mask_stream_masks": 0, "mask_stream_rejected": 0,
+                         "stream_graph_replays": 0,
+                         "stream_graph_captures": 0,
+                         "stream_eager_sweeps": 0}
+        self._graphs = {}       # SweepShape -> (CUDAGraph, launches held)
+        self._graph_in = {}     # Tcap -> static (keys, weights) buffers
+        self._graph_out = None  # static (histogram, probe) buffers
+        self._graph_pool = None
+        self._graph_side = None  # the stream captures run on
 
     def _owns(self, i: int) -> bool:
         """Chunk ownership: every chunk, or under a process span the
@@ -804,19 +909,49 @@ class GRangeEngine:
         estimated match count (``n_matches``, else twice the sample), not
         from the measured slices, so no fetch gates the dispatch; a
         violation shows in the probe and callers take the per-chunk path
-        instead."""
+        instead.
+
+        Where the engine can see that it is safe (``_graph_ready``), the
+        sweep after the fold is one replay of a CUDA graph captured for
+        the sample's ``sweep_shape`` (the first sample of a shape runs
+        eagerly and captures it); elsewhere it runs eagerly. Either way the
+        results are fresh tensors."""
         self._require_one_device("hist_device_stream")
         if w_dev is None:
             skey, w_dev = fold_stream(skey)
+        shape = self.sweep_shape(int(skey.shape[0]), n_matches, cs)
+        if self._graph_ready():
+            hist, probe = self._replay(shape, skey, w_dev)
+        else:
+            self.counters["stream_eager_sweeps"] += 1
+            hist, probe = self._stream_sweep(shape, skey,
+                                             w_dev.to(torch.int32))
+        return hist, probe, shape.P
+
+    def sweep_shape(self, t: int, n_matches: Optional[int] = None,
+                    cs: Optional[int] = None) -> SweepShape:
+        """The SweepShape of hist_device_stream over ``t`` sorted unique
+        keys: plan_stream's P and CS, and the capr and repack passes that
+        its density gives one chunk (``_code_plan``, as the chunk loop
+        computes them)."""
+        P, CS, density = self.plan_stream(t, n_matches, cs)
+        capr, steps = _code_plan(density, self.gidx.B, self.gidx.CI)
+        return SweepShape(P, CS, capr, steps, _tcap(t))
+
+    def _stream_sweep(self, shape: SweepShape, skey: torch.Tensor,
+                      sw: torch.Tensor, out: Optional[torch.Tensor] = None):
+        """(hist, probe) of hist_device_stream after the fold: the device
+        slices, the chunk loop (B1, B2/B4, B3) and the histogram (into
+        ``out`` where given, see hist_from_codes) and probe, issued on the
+        current stream with no host sync, so it can be captured. ``skey``
+        (int64, uint64 order) and ``sw`` (int32) may carry a KEY_PAD / 0
+        tail."""
         gidx = self.gidx
         G = self._GE
         n_chunks = len(gidx.chunk_keys)
-        t = int(skey.shape[0])
         with span("sweep.plan"):
-            P, CS, density = self.plan_stream(t, n_matches, cs)
             starts, ends = self._device_slices(skey)
-            sw = w_dev.to(torch.int32)
-            lane = torch.arange(P, device=skey.device)
+            lane = torch.arange(shape.P, device=skey.device)
         codes_parts, diag_parts = [], []
         nxt = self._chunk_dev(0) if n_chunks else None
         for i in range(n_chunks):
@@ -827,16 +962,100 @@ class GRangeEngine:
                 ikey, gidg = cur
                 cod, nl, nc, wlost = _chunk_codes(
                     ikey, gidg, c_key, c_w, int(gidx.bases[i]),
-                    width=gidx.width, B=gidx.B, CS=CS, n_genomes=G,
-                    density=density, nt=gidx.nt, subwidth=gidx.subwidth,
-                    ov=gidx.ov)
+                    width=gidx.width, B=gidx.B, CS=shape.CS, n_genomes=G,
+                    plan=(shape.capr, shape.steps), nt=gidx.nt,
+                    subwidth=gidx.subwidth, ov=gidx.ov)
                 codes_parts.append(cod)
                 diag_parts.append((nl - nc).abs() + wlost)
         with span("sweep.hist"):
-            hist = hist_from_codes(torch.cat(codes_parts), n_genomes=G)
+            hist = hist_from_codes(torch.cat(codes_parts), n_genomes=G,
+                                   out=out)
             probe = torch.stack((torch.stack(diag_parts).sum(),
                                  (ends - starts).max()))
-        return hist, probe, P
+        return hist, probe
+
+    def _graph_ready(self) -> bool:
+        """Whether a stream sweep replays a captured graph: on a CUDA
+        device, one device and process, every chunk resident (a streamed
+        upload is host work inside the loop) and no heavy-run index."""
+        return (self.device.type == "cuda" and self._one_device()
+                and len(self._dev_chunks) == len(self.gidx.chunk_keys)
+                and self.gidx.n_heavy == 0)
+
+    def _replay(self, shape: SweepShape, skey: torch.Tensor,
+                w_dev: torch.Tensor):
+        """(hist, probe) of _stream_sweep on the sample staged into the
+        static inputs: a replay of the graph of ``shape`` where the engine
+        keeps one, copied out of the static outputs so that the next
+        replay cannot overwrite them; else the eager sweep that captures
+        the graph for the samples of that shape that follow. Past
+        _GRAPHS_MAX kept graphs a new shape runs eagerly, uncaptured."""
+        if shape not in self._graphs and len(self._graphs) >= _GRAPHS_MAX:
+            self.counters["stream_eager_sweeps"] += 1
+            return self._stream_sweep(shape, skey, w_dev.to(torch.int32))
+        with span("sweep.replay"):
+            bufs = self._graph_in.get(shape.Tcap)
+            if bufs is None:
+                bufs = self._graph_in[shape.Tcap] = tuple(
+                    torch.empty(shape.Tcap, dtype=dt, device=self.device)
+                    for dt in (torch.int64, torch.int32))
+            keys, w = bufs
+            stage_sample(keys, w, skey, w_dev)
+            hit = self._graphs.get(shape)
+            if hit is None:
+                return self._capture(shape, keys, w)
+            graph, held = hit
+            graph.replay()
+            _cuda.count_launches(held)
+            self.counters["stream_graph_replays"] += 1
+            hist, probe = self._graph_out
+            return hist[:self._GE * HIST_H + 1].clone(), probe.clone()
+
+    def _capture(self, shape: SweepShape, keys: torch.Tensor,
+                 w: torch.Tensor):
+        """(hist, probe) of _stream_sweep at ``shape`` on the static inputs
+        ``keys`` and ``w``, run eagerly on the current stream (which also
+        builds and loads every kernel outside the capture), then the graph
+        of the same work, captured on the engine's side stream into its
+        one memory pool and kept for the next sample of this shape.
+
+        The capture neither synchronizes nor empties the allocator's cache
+        (as ``torch.cuda.graph`` does on entry), so the host never waits
+        on the device here. Its launches run only in a replay: they count
+        in the graph's own record (``_cuda.recording_launches``, this
+        thread only), which each replay adds. Every temporary of the
+        capture is freed before it ends and the outputs live outside the
+        pool, so the graphs that share the pool may replay in any order."""
+        with span("sweep.capture"):
+            if self._graph_out is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._graph_side = torch.cuda.Stream(self.device)
+                self._graph_out = (
+                    torch.empty(self._GE * HIST_H + SENT_BINS,
+                                dtype=torch.int64, device=self.device),
+                    torch.empty(2, dtype=torch.int64, device=self.device))
+            result = self._stream_sweep(shape, keys, w)
+            hist, probe = self._graph_out
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(self._graph_side), \
+                    _cuda.recording_launches() as held:
+                graph.capture_begin(pool=self._graph_pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    probe.copy_(self._stream_sweep(shape, keys, w,
+                                                   out=hist)[1])
+                finally:
+                    graph.capture_end()
+        self.counters["stream_graph_captures"] += 1
+        self._graphs[shape] = (graph, held)
+        return result
+
+    def graph_buffers(self) -> list:
+        """The device tensors the engine keeps for its captured stream
+        sweeps: a static input pair a Tcap and the static outputs (the
+        graphs' temporaries are in their pool, reserved, not allocated)."""
+        out = [t for pair in self._graph_in.values() for t in pair]
+        return out + list(self._graph_out or ())
 
     def candidate_mask_stream(self, device_view, mask_fn,
                               n_matches: Optional[int] = None):
@@ -874,7 +1093,7 @@ class GRangeEngine:
         device; T is the next power of two (>= 1024) of the longest, as the
         JAX package pads them."""
         n_live = [int(k.size) for k, _ in tables]
-        T = max(1024, 1 << int(np.ceil(np.log2(max(max(n_live), 1)))))
+        T = _tcap(max(n_live))
         keys = torch.full((len(tables), T), KEY_PAD, dtype=torch.int64,
                           device=self.device)
         w = torch.zeros((len(tables), T), dtype=torch.uint8,
@@ -953,14 +1172,14 @@ class GRangeEngine:
         """All-device histograms of S sorted unique tables in ONE sweep of
         the index (sylph_tpu/tpu/grange.py:1242-1350): per chunk S fills
         (B1), one batched compare (B2b, or B4b on dense batches) and one
-        repack chain over the sample-tagged stream, then one bincount over
+        repack chain over the sample-tagged stream, then one histogram over
         S*g_eff*H + 1 bins. ``keys``/``w`` are [S, T] as upload_tables
         gives them, ``n_live`` their live lengths.
 
         Returns (hists [S, g_eff*H] device int64, probe, P): ``probe`` is a
         device int64 [2] of (summed conservation differences, longest chunk
         slice); the histograms are exact iff probe[0] == 0 and probe[1] <=
-        P. The port's bincount is exact, so the JAX probe's runs_cap leg
+        P. The port's histogram is exact, so the JAX probe's runs_cap leg
         has no counterpart."""
         self._require_one_device("hist_device_stream_batched")
         gidx = self.gidx
@@ -985,7 +1204,7 @@ class GRangeEngine:
                 ov=gidx.ov)
             codes_parts.append(cod)
             diag.append((nl - nc).abs() + wlost)
-        # codes are (s*G + gid)*H + mult: one bincount over S*G bins
+        # codes are (s*G + gid)*H + mult: one histogram over S*G bins
         hist = hist_from_codes(torch.cat(codes_parts), n_genomes=S * G)
         probe = torch.stack((torch.stack(diag).sum(),
                              (ends - starts).max()))
@@ -1123,7 +1342,7 @@ class GRangeEngine:
                 return cc
             d_true = max(live_total / n, 1e-6)
             dq = min(0.25, 2.0 ** np.ceil(np.log2(d_true)) * 2.0)
-            cc2 = _compact_codes(cc, dq)
+            cc2 = _repack_codes(cc, _repack_chain(n, dq))
             with wait("sweep.recompact"):
                 n2 = int((cc2 != SENT).sum())
             return cc2 if n2 == live_total else cc

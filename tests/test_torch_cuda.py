@@ -1394,7 +1394,16 @@ def test_engine_c1_sweeps_on_card_match_cpu(cuda, nt):
     tables = [(sk, sc), (sk[::3], sc[::3])]
     np.testing.assert_array_equal(on_card.hists_batched(tables),
                                   on_cpu.hists_batched(tables))
-    assert on_card.counters == on_cpu.counters
+    # the card may capture and replay its stream sweeps where the CPU runs
+    # them eagerly
+    card, cpu = dict(on_card.counters), dict(on_cpu.counters)
+    ways = ("stream_graph_replays", "stream_graph_captures",
+            "stream_eager_sweeps")
+    assert sum(card.pop(k) for k in ways) == cpu["stream_eager_sweeps"] == 2
+    assert cpu.pop("stream_graph_replays") == 0
+    assert cpu.pop("stream_graph_captures") == 0
+    cpu.pop("stream_eager_sweeps")
+    assert card == cpu
 
 
 def _c1_world(tmp, rng):
@@ -1632,3 +1641,226 @@ def test_dupskew_parity_on_card(cuda):
     assert len(recs) == 6
     assert all(r["parity"] == "OK" and r["dparity"] == "OK" for r in recs)
     assert any(r["spill"] for r in recs) and any(r["heavy"] for r in recs)
+
+
+# ---- the stream sweep replayed from a CUDA graph ----------------------------
+
+def _stream_world(cuda, seed=90, G=60, m=200_000):
+    """A tiled grange index on the card with no heavy runs, and its
+    samples: (int64 keys in uint64 order, uint8 weights) on the card, t
+    distinct keys, half of them from the index."""
+    rng = np.random.default_rng(seed)
+    thr = ((1 << 64) - 1) // 20
+    kmers = rng.integers(0, thr, size=m, dtype=np.uint64)
+    gids = rng.integers(0, G, size=m).astype(np.int32)
+    idx = gr.build_grange_index(kmers, gids, G, chunk_slots=1 << 15,
+                                target_mean=512, nt=4, device=cuda)
+    assert idx.n_heavy == 0 and len(idx.chunk_keys) > 2
+
+    def sample(t, s):
+        r = np.random.default_rng(s)
+        sk = np.unique(np.concatenate([
+            r.choice(kmers, size=t // 2),
+            r.integers(0, thr, size=t - t // 2, dtype=np.uint64)]))
+        sc = r.integers(1, 90, size=sk.size)
+        return (torch.from_numpy(sk.view(np.int64)).to(cuda),
+                torch.from_numpy(np.minimum(sc, 63).astype(np.uint8)
+                                 ).to(cuda))
+    return idx, sample
+
+
+def test_stream_graph_replays_match_eager(cuda, monkeypatch):
+    """Replayed stream sweeps give the eager sweep's histograms, probes and
+    slice lengths bit for bit, over samples of two static buffer lengths
+    and the retry at 8 lanes more; one capture a shape."""
+    idx, sample = _stream_world(cuda)
+    graph = gr.GRangeEngine(idx, device=cuda)
+    eager = gr.GRangeEngine(idx, device=cuda)
+    monkeypatch.setattr(eager, "_graph_ready", lambda: False)
+    assert graph._graph_ready()
+    shapes, calls = set(), 0
+    for t, seed in ((3000, 1), (7000, 2), (3000, 3), (2900, 4), (7000, 5)):
+        skey, w = sample(t, seed)
+        cs = graph.plan_stream(int(skey.shape[0]))[1]
+        for c in (None, cs + 8):
+            got = graph.hist_device_stream(skey, w, cs=c)
+            want = eager.hist_device_stream(skey, w, cs=c)
+            assert torch.equal(got[0], want[0]), (t, seed, c)
+            assert torch.equal(got[1], want[1]) and got[2] == want[2]
+            assert int(want[1][0]) == 0 and want[0][:-1].sum() > 0
+            shapes.add(graph.sweep_shape(int(skey.shape[0]), cs=c))
+            calls += 1
+    assert len({s.Tcap for s in shapes}) >= 2
+    assert graph.counters["stream_graph_captures"] == len(shapes) < calls
+    assert graph.counters["stream_graph_replays"] == calls - len(shapes)
+    assert graph.counters["stream_eager_sweeps"] == 0
+    assert eager.counters["stream_eager_sweeps"] == calls
+    assert eager.counters["stream_graph_captures"] == 0
+
+
+def test_stream_graph_results_are_not_aliased(cuda):
+    """A result stays intact after the next call replays the same graph
+    into the same static buffers."""
+    idx, sample = _stream_world(cuda)
+    eng = gr.GRangeEngine(idx, device=cuda)
+    a, b = sample(3000, 11), sample(3000, 12)
+    assert eng.sweep_shape(int(a[0].shape[0])) == \
+        eng.sweep_shape(int(b[0].shape[0]))
+    h1, p1, _ = eng.hist_device_stream(*a)
+    keep_h, keep_p = h1.clone(), p1.clone()
+    h2, _p2, _ = eng.hist_device_stream(*b)
+    torch.cuda.synchronize()
+    assert eng.counters["stream_graph_captures"] == 1
+    assert torch.equal(h1, keep_h) and torch.equal(p1, keep_p)
+    assert not torch.equal(h1, h2)
+
+
+def test_stream_graph_counts_one_capture_then_replays(cuda):
+    """The first call runs eagerly, returns that result and captures;
+    later calls replay. Each call counts the launches of one eager sweep
+    (a fill a chunk): the capture's own launches run nowhere."""
+    idx, sample = _stream_world(cuda)
+    eng = gr.GRangeEngine(idx, device=cuda)
+    skey, w = sample(3000, 21)
+    n = len(idx.chunk_keys)
+    launched = []
+    for _ in range(3):
+        n0 = dict(bj._cuda.LAUNCHES)
+        eng.hist_device_stream(skey, w)
+        launched.append({k: v - n0[k] for k, v in bj._cuda.LAUNCHES.items()
+                         if v != n0[k]})
+    assert launched[0]["B1_fill"] == n
+    assert launched[0] == launched[1] == launched[2]
+    assert eng.counters["stream_graph_captures"] == 1
+    assert eng.counters["stream_graph_replays"] == 2
+    assert eng.counters["stream_eager_sweeps"] == 0
+
+
+def test_stream_sweep_stays_eager_with_chunks_not_resident(cuda):
+    """An engine that holds fewer chunks than the index has uploads chunks
+    inside the loop, so its stream sweep runs eagerly, with the same
+    result as a replay."""
+    idx, sample = _stream_world(cuda)
+    part = gr.GRangeEngine(idx, device=cuda, max_resident_chunks=1)
+    full = gr.GRangeEngine(idx, device=cuda)
+    assert not part._graph_ready() and full._graph_ready()
+    skey, w = sample(3000, 31)
+    got = part.hist_device_stream(skey, w)
+    want = full.hist_device_stream(skey, w)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert part.counters["stream_eager_sweeps"] == 1
+    assert part.counters["stream_graph_captures"] == 0
+    assert full.counters["stream_graph_captures"] == 1
+
+
+def test_stream_graph_replay_does_not_sync(cuda):
+    """A replayed sweep of a folded sample raises nothing under
+    set_sync_debug_mode("error"): no call blocks the host."""
+    idx, sample = _stream_world(cuda)
+    eng = gr.GRangeEngine(idx, device=cuda)
+    skey, w = sample(3000, 41)
+    want = eng.hist_device_stream(skey, w)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = eng.hist_device_stream(skey, w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert eng.counters["stream_graph_replays"] == 1
+
+
+def test_stream_graph_cache_full_runs_new_shapes_eagerly(cuda, monkeypatch):
+    """With _GRAPHS_MAX graphs kept, a sample of a new shape runs eagerly
+    and is not captured, and the kept shapes go on replaying; the engine's
+    graph buffers are one input pair a captured Tcap and the outputs."""
+    monkeypatch.setattr(gr, "_GRAPHS_MAX", 1)
+    idx, sample = _stream_world(cuda)
+    eng = gr.GRangeEngine(idx, device=cuda)
+    eager = gr.GRangeEngine(idx, device=cuda)
+    monkeypatch.setattr(eager, "_graph_ready", lambda: False)
+    a, b = sample(3000, 81), sample(7000, 82)
+    sa, sb = (eng.sweep_shape(int(x[0].shape[0])) for x in (a, b))
+    assert sa != sb
+    for x in (a, b, a, b):
+        got, want = eng.hist_device_stream(*x), eager.hist_device_stream(*x)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    c = eng.counters
+    assert (c["stream_graph_captures"], c["stream_graph_replays"],
+            c["stream_eager_sweeps"]) == (1, 1, 2)
+    assert list(eng._graphs) == [sa]
+    nbytes = sum(t.numel() * t.element_size() for t in eng.graph_buffers())
+    assert nbytes == sa.Tcap * 12 + (eng._GE * 64 + gr.SENT_BINS) * 8 + 16
+
+
+def test_stream_graph_capture_does_not_sync(cuda, monkeypatch):
+    """The first sweep of a shape, which runs eagerly and captures its
+    graph, raises nothing under set_sync_debug_mode("error"): the capture
+    neither synchronizes the device nor empties the allocator's cache."""
+    idx, sample = _stream_world(cuda)
+    warm = gr.GRangeEngine(idx, device=cuda)
+    monkeypatch.setattr(warm, "_graph_ready", lambda: False)
+    skey, w = sample(3000, 61)
+    want = warm.hist_device_stream(skey, w)      # builds the kernels
+    eng = gr.GRangeEngine(idx, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = eng.hist_device_stream(skey, w)
+        again = eng.hist_device_stream(skey, w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g in (got, again):
+        assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+    assert eng.counters["stream_graph_captures"] == 1
+    assert eng.counters["stream_graph_replays"] == 1
+
+
+def test_stream_graph_capture_counts_exactly_with_another_thread(cuda,
+                                                               monkeypatch):
+    """Another thread sweeps eagerly in the middle of a capture (as the
+    CLI's loaders launch kernels while a sample is swept): its launches
+    count in the launch counts as they ran, the graph holds only its own,
+    and the capture and the other thread's sweep both stay exact."""
+    idx, sample = _stream_world(cuda)
+    eng = gr.GRangeEngine(idx, device=cuda)
+    other = gr.GRangeEngine(idx, device=cuda)
+    monkeypatch.setattr(other, "_graph_ready", lambda: False)
+    skey, w = sample(3000, 71)
+    want = other.hist_device_stream(skey, w)
+    n = len(idx.chunk_keys)
+    go, done, got_other = threading.Event(), threading.Event(), []
+
+    def sweep_in_thread():
+        go.wait(60)
+        got_other.append(other.hist_device_stream(skey, w))
+        done.set()
+
+    sweep = eng._stream_sweep
+    during = []
+
+    def stream_sweep(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            go.set()
+            during.append(done.wait(60))
+        return sweep(*a, **kw)
+    monkeypatch.setattr(eng, "_stream_sweep", stream_sweep)
+    th = threading.Thread(target=sweep_in_thread)
+    th.start()
+    n0 = dict(bj._cuda.LAUNCHES)
+    got = eng.hist_device_stream(skey, w)
+    th.join(60)
+    assert during == [True] and not th.is_alive()
+    delta = {k: v - n0[k] for k, v in bj._cuda.LAUNCHES.items()
+             if v != n0[k]}
+    assert delta["B1_fill"] == 2 * n           # the eager pass + the thread
+    (graph, held), = eng._graphs.values()
+    assert held["B1_fill"] == n
+    assert {k: 2 * v for k, v in held.items()} == delta
+    n0 = dict(bj._cuda.LAUNCHES)
+    again = eng.hist_device_stream(skey, w)
+    assert {k: v - n0[k] for k, v in bj._cuda.LAUNCHES.items()
+            if v != n0[k]} == held
+    for g in (got, got_other[0], again):
+        assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+    assert eng.counters["stream_graph_replays"] == 1

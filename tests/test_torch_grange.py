@@ -5,6 +5,8 @@ seed: the index layout field by field, one chunk's code stream bit for bit
 and the [G, 64] histograms exactly.
 """
 
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 
 import sylph_tpu.tpu.grange as jgr
 from sylph_tpu.tpu import u64
+from sylph_tpu_torch.gpu import _cuda
 from sylph_tpu_torch.gpu import grange as tgr
 from sylph_tpu_torch.gpu.keys import from_pair_np
 from tests.test_grange import _oracle_hists, _world, _zipf_world
@@ -364,3 +367,152 @@ def test_sample_stream_out_of_sync_raises():
     with pytest.raises(RuntimeError, match="out of sync"):
         st.finalize(np.arange(6, dtype=np.uint64), np.ones(6, np.uint32))
     assert not st._worker.is_alive()
+
+
+# ---- the stream sweep's static inputs, histogram and shapes ----------------
+
+def _stream_engine(case):
+    make, G, kw = _ENGINE_CASES[case]
+    kmers, gids, sk, sc = make()
+    idx = tgr.build_grange_index(kmers, gids, G, device="cpu", **kw)
+    skey = torch.from_numpy(sk.view(np.int64))
+    return tgr.GRangeEngine(idx, device="cpu"), skey, torch.from_numpy(
+        np.minimum(sc, 63).astype(np.uint8))
+
+
+@pytest.mark.parametrize("case,grow", [("flat", 1), ("tiled", 1),
+                                       ("tiled", 4)])
+def test_stream_sweep_on_padded_static_inputs_is_bit_identical(case, grow):
+    """The sweep on the sample staged into static buffers longer than it
+    (KEY_PAD and 0 tails, as a graph replay reads it) gives the histogram
+    and probe of the unpadded sample, bit for bit, also written into a
+    reused output buffer."""
+    eng, skey, w = _stream_engine(case)
+    t = int(skey.shape[0])
+    shape = eng.sweep_shape(t)
+    Tcap = shape.Tcap * grow
+    assert Tcap > t
+    keys = torch.full((Tcap,), 7, dtype=torch.int64)
+    wb = torch.full((Tcap,), 9, dtype=torch.int32)
+    tgr.stage_sample(keys, wb, skey, w)
+    assert (keys[t:] == -1).all() and (wb[t:] == 0).all()
+    want_h, want_p, P = eng.hist_device_stream(skey, w)
+    assert P == shape.P and int(want_p[0]) == 0 and want_h[:-1].sum() > 0
+    out = torch.full((eng._GE * 64 + tgr.SENT_BINS,), 5, dtype=torch.int64)
+    for _ in range(2):
+        got_h, got_p = eng._stream_sweep(shape, keys, wb, out=out)
+        assert got_h.data_ptr() == out.data_ptr()
+        assert torch.equal(got_h, want_h) and torch.equal(got_p, want_p)
+
+
+def _codes(kind, n, G, rng):
+    nb = G * 64
+    if kind == "empty":
+        return torch.empty(0, dtype=torch.int32)
+    if kind == "all_sent":
+        return torch.full((n,), -1, dtype=torch.int32)
+    v = rng.integers(0, nb, size=n)
+    if kind == "largest":
+        v[::7] = nb - 1
+    live = {"mostly_sent": 0.02, "largest": 0.5, "mixed": 0.5}[kind]
+    v[rng.random(n) >= live] = -1
+    return torch.from_numpy(v.astype(np.int32))
+
+
+@pytest.mark.parametrize("kind,n", [("empty", 0), ("all_sent", 5000),
+                                    ("largest", 3000), ("mostly_sent", 9000),
+                                    ("mixed", 3 * tgr.SENT_BINS + 17)])
+def test_hist_from_codes_matches_bincount(kind, n):
+    """The sync-free histogram equals torch.bincount(minlength=G*H+1) of
+    the codes with SENT in the last bin, in a new buffer and in a reused
+    one."""
+    G = 37
+    codes = _codes(kind, n, G, np.random.default_rng(n))
+    seg = torch.where(codes != -1, codes.to(torch.int64), G * 64)
+    want = torch.bincount(seg, minlength=G * 64 + 1)
+    got = tgr.hist_from_codes(codes, n_genomes=G)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    out = torch.full((G * 64 + tgr.SENT_BINS,), 3, dtype=torch.int64)
+    for _ in range(2):
+        assert torch.equal(tgr.hist_from_codes(codes, n_genomes=G, out=out),
+                           want)
+    assert int(want[-1]) == int((codes == -1).sum())
+    if kind == "largest":
+        assert int(want[G * 64 - 1]) > 0
+
+
+def test_sweep_shape_is_the_baked_integers():
+    """sweep_shape is (P, CS, capr, repack passes, Tcap) as plan_stream,
+    _code_plan and the static buffer's length give them: two t whose
+    integers agree share one key, and keys differ where P, CS, capr, a
+    repack pass or Tcap differ."""
+    eng, _skey, _w = _stream_engine("tiled")
+    g = eng.gidx
+    shapes = {}
+    for t in range(1000, 12000, 37):
+        s = eng.sweep_shape(t)
+        P, CS, density = eng.plan_stream(t)
+        capr, steps = tgr._code_plan(density, g.B, g.CI)
+        assert s == (P, CS, capr, steps, tgr._tcap(t))
+        assert s.Tcap >= max(t, 1024) and s.Tcap & (s.Tcap - 1) == 0
+        shapes.setdefault(s, []).append(t)
+    assert any(len(ts) > 1 for ts in shapes.values())
+    assert len(shapes) < len(range(1000, 12000, 37)) // 4
+    # Tcap alone: the same plan either side of a power of two
+    assert any(a.Tcap != b.Tcap and a[:4] == b[:4]
+               for a in shapes for b in shapes)
+    base = eng.sweep_shape(3000)
+    retry = eng.sweep_shape(3000, cs=base.CS + 8)
+    assert retry != base and retry._replace(CS=base.CS) == base
+    by_plan = {}
+    for nm in range(0, 400_000, 500):
+        s = eng.sweep_shape(3000, n_matches=nm)
+        by_plan.setdefault((s.capr, s.steps), s)
+    plans = list(by_plan)
+    assert len({c for c, _ in plans}) > 1
+    assert any(a[0] == b[0] and a[1] != b[1] for a in plans for b in plans)
+    assert len(set(by_plan.values())) == len(plans)
+
+
+def test_eager_stream_sweep_counts():
+    """Off a CUDA device the stream sweep runs eagerly and counts so; no
+    graph is captured or replayed."""
+    eng, skey, w = _stream_engine("flat")
+    assert not eng._graph_ready()
+    eng.hist_device_stream(skey, w)
+    eng.hist_device_stream(skey, w, cs=16)
+    c = eng.counters
+    assert c["stream_eager_sweeps"] == 2
+    assert c["stream_graph_replays"] == c["stream_graph_captures"] == 0
+    assert not eng._graphs
+
+
+def test_a_capture_records_only_its_own_threads_launches():
+    """Inside recording_launches the thread's launches count in the
+    capture's record, not in LAUNCHES; another thread's launches at the
+    same time count in LAUNCHES as usual; count_launches adds a record."""
+    before = dict(_cuda.LAUNCHES)
+
+    def other():
+        for _ in range(5):
+            _cuda.count_launch("B1_fill")
+    try:
+        with _cuda.recording_launches() as held:
+            _cuda.count_launch("B1_fill")
+            _cuda.count_launch("B3_repack")
+            th = threading.Thread(target=other)
+            th.start()
+            th.join()
+            _cuda.count_launch("B3_repack")
+        _cuda.count_launch("B3_repack")
+        delta = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+                 if v != before[k]}
+        assert held == {"B1_fill": 1, "B3_repack": 2}
+        assert delta == {"B1_fill": 5, "B3_repack": 1}
+        _cuda.count_launches(held)
+        assert _cuda.LAUNCHES["B1_fill"] - before["B1_fill"] == 6
+        assert _cuda.LAUNCHES["B3_repack"] - before["B3_repack"] == 3
+        assert getattr(_cuda._RECORDING, "counts", None) is None
+    finally:
+        with _cuda._COUNT_LOCK:
+            _cuda.LAUNCHES.update(before)

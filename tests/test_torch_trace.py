@@ -129,14 +129,12 @@ PARENTS = {
     "sweep": {"fold": None, "fold.mask": "fold", "fold.unique": "fold",
               "sweep": None, "sweep.plan": "sweep", "sweep.chunk": "sweep",
               "sweep.fill": "sweep.chunk", "sweep.join": "sweep.chunk",
-              "sweep.repack": "sweep.chunk", "sweep.hist": "sweep",
-              "sweep.bincount": "sweep.hist"},
+              "sweep.repack": "sweep.chunk", "sweep.hist": "sweep"},
     "sweep.chunks": {"sweep.chunks": None, "sweep.upload": "sweep.chunks",
                      "sweep.fill": "sweep.chunks",
                      "sweep.join": "sweep.chunks",
                      "sweep.repack": "sweep.chunks",
                      "sweep.probe": "sweep.chunks",
-                     "sweep.bincount": "sweep.chunks",
                      "sweep.fetch": "sweep.chunks"},
     "join": {"join": None, "join.bincount": "join", "stats": None},
     "stats": {"stats": None},
