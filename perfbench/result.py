@@ -45,18 +45,31 @@ def unpack(host: np.ndarray, G: int):
 
 class Fetch:
     """A device tensor's copy to the host, queued now on the current
-    stream into pinned memory; ``get()`` waits for it."""
+    stream into a pinned buffer; ``get()`` waits for it and returns the
+    result in pageable memory, giving the buffer back for the next fetch of
+    that shape. So only the warm-up allocates page-locked memory: one
+    ``cudaHostAlloc`` a sample inside the window, as a buffer held by each
+    result would need, stalled the host for up to tens of ms."""
+
+    _free: dict = {}        # (shape, dtype) -> pinned buffers not in use
 
     def __init__(self, t: torch.Tensor):
         if t.device.type == "cuda":
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            free = Fetch._free.setdefault((tuple(t.shape), t.dtype), [])
+            self.host = free.pop() if free else torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True)
             self.host.copy_(t, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
+            self.out = None
         else:
-            self.host, self.event = t.cpu(), None
+            self.out = t.cpu().numpy()
 
     def get(self) -> np.ndarray:
-        if self.event is not None:
+        if self.out is None:
             self.event.synchronize()
-        return self.host.numpy()
+            self.out = self.host.numpy().copy()
+            Fetch._free[(tuple(self.host.shape), self.host.dtype)].append(
+                self.host)
+            self.host = None
+        return self.out

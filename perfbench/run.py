@@ -192,9 +192,7 @@ def control(driver, pool, cfg) -> dict:
 
 def e2e_metrics(rec, t_end, pool, setup_s, peak, seconds) -> dict:
     done = sum(1 for r in rec if r[3] <= t_end)
-    lat = [(r[3] - r[2]) * 1e3 for r in rec]
     return {"profile_gbps": done * pool.bases / seconds / 1e9,
-            "sample_p95_ms": float(np.percentile(lat, 95)),
             "device_peak_gib": peak / GIB, "setup_s": setup_s}
 
 

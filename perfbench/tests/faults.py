@@ -11,13 +11,16 @@ and prints the run's result line (``correct`` has to read false).
          before it
   half   half of each sample's batches left out
   bin    one histogram bin altered where the join produces it (genome 0,
-         multiplicity 1)
+         multiplicity 1), by the driver's own hook: hooks/<driver>.py,
+         ``bin(patch)``; a driver without one raises
 """
 
 import importlib
 import json
 import os
 import sys
+
+HOOKS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hooks")
 
 
 def stale(mod, patch):
@@ -40,24 +43,13 @@ def half(mod, patch):
 
 
 def bin(mod, patch):  # noqa: A001
-    from sylph_tpu_torch.gpu import grange, pipeline
-    if mod.__name__.endswith("grange_sweep"):
-        orig = grange.GRangeEngine.hist_device_stream
-
-        def sweep(self, *a, **kw):
-            hist, probe, P = orig(self, *a, **kw)
-            hist = hist.clone()
-            hist[1] += 1
-            return hist, probe, P
-        patch(grange.GRangeEngine, "hist_device_stream", sweep)
-    else:
-        orig = pipeline.merge_join_hist
-
-        def join(*a, **kw):
-            hist = orig(*a, **kw).clone()
-            hist[0, 1] += 1
-            return hist
-        patch(pipeline, "merge_join_hist", join)
+    """The bin hook of the cell's driver, hooks/<driver>.py."""
+    name = mod.__name__.rsplit(".", 1)[-1]
+    path = os.path.join(HOOKS, name + ".py")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"the driver {name!r} has no bin hook: {path} is missing")
+    importlib.import_module(f"perfbench.tests.hooks.{name}").bin(patch)
 
 
 FAULTS = {"stale": stale, "half": half, "bin": bin}

@@ -1,6 +1,7 @@
 """The harness end to end at the tiny sizes of tiny.py: a correct run, the
 contract's result line, faults planted in the timed path coming out as
-not correct, the control, and the runs that must print no result."""
+not correct, the control, the runs that must print no result, and a
+configuration added as files only."""
 
 import contextlib
 import io
@@ -28,8 +29,8 @@ def _mine(metrics, cell):
 
 
 def _run(tmp_path, cell, *extra, device="cpu", seconds=1, trace=0,
-         drop=()):
-    bench = tiny.write(str(tmp_path), drop)
+         drop=(), src=ROOT):
+    bench = tiny.write(str(tmp_path), drop, src)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = run.main(["--workload", cell, "--seed", str(2**31 + 77),
@@ -119,11 +120,18 @@ def test_forbidden_module_no_result(tmp_path, monkeypatch):
 
 
 def test_imports_no_jax_and_no_jax_package():
-    """Nothing the harness imports, drivers and the port included, has the
-    top-level name jax, jaxlib, flax or sylph_tpu (compared whole)."""
+    """Nothing the harness imports, every driver in perfbench/drivers/, each
+    driver's bin hook and the port included, has the top-level name jax,
+    jaxlib, flax or sylph_tpu (compared whole)."""
+    mods = [f"perfbench.{pkg}.{f[:-3]}" for pkg in ("drivers", "tests.hooks")
+            for f in sorted(os.listdir(os.path.join(
+                ROOT, "perfbench", *pkg.split("."))))
+            if f.endswith(".py") and f != "__init__.py"]
+    assert {"perfbench.drivers.grange_sweep",
+            "perfbench.drivers.merge_join"} <= set(mods)
     code = ("import sys, importlib, perfbench.run\n"
-            "for d in ('grange_sweep', 'merge_join'):\n"
-            "    importlib.import_module('perfbench.drivers.' + d)\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True,
@@ -149,13 +157,79 @@ def test_without_the_port_no_result(tmp_path):
     assert p.returncode != 0 and p.stdout.strip() == ""
 
 
+NEW = "uhgg_v2_copy"
+
+
+def _added(tmp_path, with_cut=True):
+    """A copy of the benchmark's files under ``tmp_path/src`` with a
+    configuration added as files only: uhgg_v2's file under a new name, its
+    cut file, and its entry and one cell on an existing traffic in
+    BENCHMARK.json. Returns (src, bench, the new cell)."""
+    src = tmp_path / "src"
+    shutil.copytree(os.path.join(ROOT, "perfbench"), src / "perfbench",
+                    ignore=shutil.ignore_patterns("cache", "out",
+                                                  "__pycache__"))
+    conf = src / "perfbench" / "configs"
+    cfg = json.loads((conf / "uhgg_v2.json").read_text())
+    (conf / f"{NEW}.json").write_text(json.dumps(dict(cfg, name=NEW)))
+    if with_cut:
+        cuts = src / tiny.CUTS
+        shutil.copy(cuts / "uhgg_v2.json", cuts / f"{NEW}.json")
+    bench = json.loads(json.dumps(BENCH))
+    entry = {c["name"]: c for c in bench["configs"]}["uhgg_v2"]
+    bench["configs"].append(dict(entry, name=NEW,
+                                 file=f"perfbench/configs/{NEW}.json"))
+    cell = f"{NEW}.wgs1g"
+    bench["workloads"].append({"name": cell, "config": NEW,
+                               "traffic": "wgs1g", "chips": 1,
+                               "why": "a configuration added as files only"})
+    (src / "BENCHMARK.json").write_text(json.dumps(bench))
+    return src, bench, cell
+
+
+@pytest.mark.parametrize("mode", ["correct", "control",
+                                  *sorted(faults.FAULTS)])
+def test_a_configuration_added_as_files_only_runs(tmp_path, monkeypatch,
+                                                  mode):
+    """A configuration added by new files and BENCHMARK.json entries alone
+    runs its tiny cell correct, and its control and each fault not
+    correct."""
+    src, bench, cell = _added(tmp_path)
+    extra = ("--control",) if mode == "control" else ()
+    if mode in faults.FAULTS:
+        faults.FAULTS[mode](faults.driver_module(bench, str(src), cell),
+                            monkeypatch.setattr)
+    rc, line = _run(tmp_path / "run", cell, *extra, src=str(src))
+    assert rc == 0 and line["correct"] is (mode == "correct")
+    if mode == "control":
+        gap = line["checks"]["stat_gap"]
+        assert gap["value"] > gap["limit"]
+    elif mode in faults.FAULTS:
+        assert 0 < line["failed"] <= line["attempted"]
+    else:
+        assert line["attempted"] > 0 and line["failed"] == 0
+        assert set(line["metrics"]) == _mine(bench["end_to_end"], cell)
+
+
+def test_a_configuration_without_a_cut_file_is_refused(tmp_path):
+    src, _bench, _cell = _added(tmp_path, with_cut=False)
+    with pytest.raises(FileNotFoundError,
+                       match=f"cuts/{NEW}\\.json is missing"):
+        tiny.write(str(tmp_path / "run"), src=str(src))
+
+
+def test_a_driver_without_a_bin_hook_raises(monkeypatch):
+    mod = types.ModuleType("perfbench.drivers.no_hook")
+    with pytest.raises(FileNotFoundError,
+                       match="hooks/no_hook\\.py is missing"):
+        faults.bin(mod, monkeypatch.setattr)
+
+
 @pytest.mark.cuda
 def test_tiny_cells_on_the_card(tmp_path, cuda_device):
     for cell in CELLS:
-        # at these sizes the sweep's slices are dense and take B4, whose
-        # time B2_roofline (B2's share alone) does not read
         rc, line = _run(tmp_path, cell, device="cuda", trace=1,
-                        drop=("B2_roofline",))
+                        drop=tiny.card_drop(BENCH, cell))
         assert rc == 0 and line["correct"] is True
         assert line["device"]["platform"] == "gpu"
         assert line["device"]["busy_s"] > 0
