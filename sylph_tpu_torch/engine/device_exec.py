@@ -6,8 +6,9 @@ Three regimes by total index size, as in the JAX package:
     gpu/containment.py::merge_join_counts gives exact per-k-mer counts
     (one sort of the sample table), cached per sample.
   - bucket (< GRANGE_MIN): each CHUNK-slot chunk is laid out dense per hash
-    bucket once (gpu/bucket_join.py::build_bucketed_index); per sample,
-    the B1 fill and the B5' compare give the same exact counts.
+    bucket once (gpu/bucket_join.py::BucketEngine); per sample, the B1 fill
+    and the B5' compare give the prefilter's per-genome histograms on the
+    device, and the same exact counts where the statistics read them.
   - grange (>= GRANGE_MIN, database scale): the globally hash-sorted,
     range-chunked layout (gpu/grange.py). Per sample the device produces
     the per-genome coverage HISTOGRAM (or just the [G] candidate mask);
@@ -47,7 +48,7 @@ import numpy as np
 import torch
 
 from ..core.types import GenomeSketch, SequencesSketch
-from ..gpu.bucket_join import bucket_join_counts, build_bucketed_index
+from ..gpu.bucket_join import BucketEngine, padded_slots
 from ..gpu.containment import (build_host_index, merge_join_counts,
                                 merge_join_counts_batched,
                                 merge_join_counts_sharded,
@@ -55,9 +56,9 @@ from ..gpu.containment import (build_host_index, merge_join_counts,
                                 shard_index)
 from ..gpu.grange import (GRangeEngine, GRangeIndex, build_grange_index,
                           merge_process_hists, resolve_device)
-from ..gpu.keys import KEY_PAD
+from ..gpu.keys import HIST_H, KEY_PAD
 from ..utils.distributed import process_count, process_index
-from ..utils.timing import stage_timer
+from ..utils.timing import stage_timer, wait
 
 log = logging.getLogger("sylph")
 
@@ -108,6 +109,7 @@ class DeviceContainment:
         self.device = self.devices[0]
         self._genome_sketches = genome_sketches
         self._grange = None
+        self._bucket = None         # the bucket regime's BucketEngine
         self._grange_span = None    # (process index, processes) or None
         self._shards = None         # sharded merge join: per-device index
         self._cache = {}            # id(sample) -> (ref, [M] int32 counts)
@@ -131,13 +133,10 @@ class DeviceContainment:
         regime uploads it whole; the bucket regime cuts it into CHUNK-slot
         chunks, and since live k-mers are a prefix of the index, a chunk's
         live k-mers are a prefix of the chunk."""
-        m = 1024
-        while m < total:
-            m *= 2
-        m = min(m, -(-total // self.CHUNK) * self.CHUNK) if total else m
         gs = self._genome_sketches
         self.index = build_host_index([g.genome_kmers for g in gs],
-                                      pad_multiple=m)
+                                      pad_multiple=padded_slots(total,
+                                                                self.CHUNK))
         self.offsets = np.concatenate(
             [[0], np.cumsum(self.index.n_kmers.astype(np.int64))])
         m = self.index.keys.size
@@ -147,12 +146,10 @@ class DeviceContainment:
         with stage_timer(f"{regime} index build",
                          detail=f"({total} k-mers)"):
             if self._use_buckets:
-                c_min = min(g.c for g in gs)
-                for s in range(0, m, self.CHUNK):
-                    n_live = min(max(total - s, 0), self.CHUNK)
-                    self._bchunks.append(build_bucketed_index(
-                        self.index.keys[s:s + n_live], c_min,
-                        n_slots=min(self.CHUNK, m - s)).to(self.device))
+                self._bucket = BucketEngine(
+                    self.index, min(g.c for g in gs), chunk=self.CHUNK,
+                    device=self.device)
+                self._bchunks = self._bucket.chunks
             else:
                 self._index_dev = torch.from_numpy(self.index.keys).to(
                     self.device)
@@ -395,12 +392,7 @@ class DeviceContainment:
         chunk the bucket join (B1 + B5')."""
         if not self._use_buckets:
             return merge_join_counts(self._index_dev, skey, sw)
-        out = torch.zeros(self.index.keys.size, dtype=torch.int32,
-                          device=self.device)
-        for i, ch in enumerate(self._bchunks):
-            base = i * self.CHUNK
-            out[base:base + ch.m] = bucket_join_counts(ch, skey, sw, n)
-        return out
+        return self._bucket.counts(skey, sw, n)
 
     def candidates_mask(self, sample: SequencesSketch, mask_kwargs: dict):
         """[G] bool candidate mask computed ON DEVICE (grange regime, one
@@ -467,7 +459,10 @@ class DeviceContainment:
 
     def hists(self, sample: SequencesSketch) -> np.ndarray:
         """[G, 64] per-genome multiplicity histograms for the prefilter:
-        from the grange sweep, or a host bincount of the exact counts."""
+        from the grange sweep, the bucket engine's device histogram, or
+        (merge regime) a host bincount of the exact counts."""
+        if self._bucket is not None:
+            return self._bucket_hists(sample)
         if self._grange is None:
             counts = self._counts(sample)
             gids = self.index.genome_ids
@@ -490,6 +485,33 @@ class DeviceContainment:
         if self._grange_span is not None:
             with stage_timer("process hists merge"):
                 out = merge_process_hists(out)
+        return out
+
+    def _bucket_hists(self, sample: SequencesSketch) -> np.ndarray:
+        """[G, 64] int64 histograms of a sample in the bucket regime: the
+        engine's whole-database histogram on the device
+        (``BucketEngine.hist_device_stream`` of the sample's table), run
+        again at a doubled sample capacity while its probe counts entries
+        the fills dropped, and fetched with the probe in one copy. Bin 0 is
+        left 0, as the merge regime's bincount leaves it; the per-slot
+        counts are left to ``genome_covs``."""
+        n = int(sample.kmers.size)
+        skey, sw = self.upload_table(sample)
+        G, cs = int(self.index.n_genomes), None
+        with stage_timer("device bucket hists",
+                         detail=f"({self.index.keys.size} k-mers x {n} "
+                         "sample k-mers)"):
+            while True:
+                hist, probe = self._bucket.hist_device_stream(
+                    skey[:n], sw[:n], n_buckets=HIST_H, cs=cs)
+                with wait("bucket.fetch"):
+                    host = torch.cat((probe.view(1), hist.view(-1).to(
+                        torch.int64))).cpu().numpy()
+                if host[0] == 0:
+                    break
+                cs = 2 * (cs or self._bucket.cs(n))
+        out = host[1:].reshape(G, HIST_H)
+        out[:, 0] = 0
         return out
 
     def genome_covs(self, genome_index: int, sample: SequencesSketch,

@@ -21,7 +21,9 @@ which launch csrc/join.cu on a CUDA tensor and run the plain version only
 for a tensor on the CPU; and the bucket regime's layout
 (``build_bucketed_index``), its per-chunk counts in chunk order
 (``bucket_join_counts``) and the one-shot pipeline's per-genome histograms
-(``build_gid_grid``, ``bucket_join_hist``).
+(``build_gid_grid``, ``bucket_join_hist``); and ``BucketEngine``, the
+regime's resident chunks, serving a sample's per-slot counts (the CLI's
+path) or its whole-database histogram on the device.
 """
 
 import ctypes
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from . import _cuda
+from ..utils.timing import span, spanned
 from .containment import genome_hist
 from .keys import HIST_H, KEY_PAD, SENT, key_hi
 
@@ -539,3 +542,159 @@ def bucket_join_hist(ikey: torch.Tensor, gid_grid: torch.Tensor,
     ids (``build_gid_grid``); slots with an id >= G fall out."""
     return genome_hist(gid_grid, bucket_join_device(
         ikey, skey, sw, width=width, B=B, CS=CS), n_genomes, n_buckets)
+
+
+# ---- the bucket regime's engine --------------------------------------------
+
+# spare bins the histogram's pad slots spread over (``hist_device_stream``):
+# atomic adds into one bin queue, and about half of a chunk's slots are pads
+_PAD_BINS = 1024
+
+
+def padded_slots(total: int, chunk: int) -> int:
+    """Slots the merge and bucket regimes pad an index of ``total`` k-mers
+    to: the next power of two (at least 1024) or the next whole number of
+    ``chunk``-slot chunks, whichever is smaller."""
+    m = 1024
+    while m < total:
+        m *= 2
+    return min(m, -(-total // chunk) * chunk) if total else m
+
+
+class BucketEngine:
+    """The bucket regime's resident index: a host index in the CLI's order
+    (genomes contiguous, as ``containment.build_host_index`` gives it,
+    padded to ``padded_slots``) cut into ``chunk``-slot chunks, each laid
+    out dense per hash bucket once (``build_bucketed_index``) and kept on
+    ``device``, with its histogram bin bases (from ``build_gid_grid``)
+    once a histogram asks for them. A chunk's live k-mers are a prefix of
+    it.
+
+    ``hist_device_stream`` gives a whole-database [G, H] histogram with
+    no host round trip (the CLI's prefilter histograms); ``counts`` a
+    sample table's exact [M] per-slot counts (the CLI's per-genome
+    statistics). Each runs B1 then B5' per chunk.
+    ``counters``: ``stream_hists`` (histogram calls), ``chunk_joins`` (B1 +
+    B5' per chunk, either path) and ``refills`` (histogram calls with a
+    sample capacity above the engine's own, as a caller asks after a
+    non-zero probe)."""
+
+    def __init__(self, index, c: int, *, chunk: int, device):
+        self.index = index
+        self.chunk = int(chunk)
+        self.device = torch.device(device)
+        self.n_genomes = int(index.n_genomes)
+        total = int(np.asarray(index.n_kmers, np.int64).sum())
+        m = index.keys.size
+        self.chunks = []
+        for s in range(0, m, self.chunk):
+            n_live = min(max(total - s, 0), self.chunk)
+            self.chunks.append(build_bucketed_index(
+                index.keys[s:s + n_live], c,
+                n_slots=min(self.chunk, m - s)).to(self.device))
+        self._bases = (None, [])        # (H, per-chunk bin bases)
+        self.counters = {"stream_hists": 0, "chunk_joins": 0, "refills": 0}
+
+    def cs(self, t: int) -> int:
+        """The sample capacity the engine gives a table of ``t`` live
+        entries: ``sample_cs`` at the first chunk's bucket count."""
+        return sample_cs(t, self.chunks[0].n_buckets)
+
+    def counts(self, skey: torch.Tensor, sw: torch.Tensor,
+               n: int) -> torch.Tensor:
+        """[M] int32 exact counts on the device of a hash-sorted table
+        (``skey`` int64 with a KEY_PAD tail, ``sw`` int32) with ``n`` live
+        entries: per chunk ``bucket_join_counts``, in chunk order."""
+        out = torch.zeros(self.index.keys.size, dtype=torch.int32,
+                          device=self.device)
+        for i, ch in enumerate(self.chunks):
+            base = i * self.chunk
+            out[base:base + ch.m] = bucket_join_counts(ch, skey, sw, n)
+        self.counters["chunk_joins"] += len(self.chunks)
+        return out
+
+    def _bin_bases(self, H: int) -> list:
+        """Each chunk's [B, CI] int32 histogram bin of a slot counted 0
+        times at H bins: gid * H from the chunk's genome-id grid
+        (``build_gid_grid``), or for a pad slot one of _PAD_BINS spare bins
+        past the G * H real ones (slot mod _PAD_BINS). Built on the first
+        call and kept, all that the histograms add to the resident index;
+        a call at another H builds them again for it."""
+        if self._bases[0] != H:
+            G, gids, out = self.n_genomes, self.index.genome_ids, []
+            self._bases = (None, [])
+            for i, ch in enumerate(self.chunks):
+                gid = build_gid_grid(
+                    ch, gids[i * self.chunk:i * self.chunk + ch.m], G)
+                spare = torch.arange(gid.numel(), dtype=torch.int32,
+                                     device=gid.device).view(gid.shape)
+                spare.bitwise_and_(_PAD_BINS - 1).add_(G * H)
+                out.append(torch.where(gid < G, gid * H, spare))
+                del gid, spare
+            self._bases = (H, out)
+        return self._bases[1]
+
+    @spanned("bucket")
+    def hist_device_stream(self, skey: torch.Tensor,
+                           w: Optional[torch.Tensor] = None, *,
+                           n_buckets: int = HIST_H,
+                           cs: Optional[int] = None):
+        """(hist [G, H] int32, probe 0-d int64), both on the device, of a
+        sample against every chunk, with no host read but the fold's.
+
+        ``skey`` is an occurrence stream of int64 keys (any shape and
+        order, -1 pads anywhere), folded first with weights clamped at
+        H - 1 (``grange.fold_stream``); or, with ``w`` given, an already
+        folded table (``skey`` in uint64 order, ``w`` its weights). The
+        sample capacity is ``cs`` or ``sample_cs`` of the folded length.
+        Per chunk, B1 fills the sample's [B, CS] bucket grids over the
+        whole hash range, B5' counts each slot, and the slots are binned
+        gid * H + min(count, H - 1) into one histogram by a scatter-add of
+        known size (pad slots spread over spare bins), as
+        ``containment.genome_hist`` bins them, bin 0 included.
+
+        ``probe`` counts the sample entries the fills dropped for want of
+        lanes, summed over the chunks: the histogram is exact iff it is 0;
+        else the caller runs the call again with a larger ``cs``."""
+        from .bucket_fill import bucket_fill
+        from .grange import fold_stream
+        G, H = self.n_genomes, int(n_buckets)
+        nb = G * H
+        if nb + _PAD_BINS >= 1 << 31:
+            raise ValueError(f"{G} genomes x {H} bins overflow the int32 "
+                             "bin space")
+        if w is None:
+            skey, w = fold_stream(skey, clamp=H - 1)
+        sw = w.to(torch.int32)
+        t = int(skey.shape[0])
+        CS = self.cs(t) if cs is None else int(cs)
+        if cs is not None and CS > self.cs(t):
+            self.counters["refills"] += 1
+        self.counters["stream_hists"] += 1
+        bases = self._bin_bases(H)
+        hist = torch.zeros(nb + _PAD_BINS, dtype=torch.int64,
+                           device=self.device)
+        one = torch.ones((), dtype=torch.int64, device=self.device)
+        hi = key_hi(skey)
+        geos = [(ch.width, ch.n_buckets) for ch in self.chunks]
+        n_in, filled = {}, []
+        for ch, geo, base in zip(self.chunks, geos, bases):
+            with span("bucket.chunk"):
+                with span("bucket.fill"):
+                    if geo not in n_in:
+                        n_in[geo] = ((torch.div(hi, ch.width,
+                                                rounding_mode="floor")
+                                      < ch.n_buckets) & (sw > 0)).sum()
+                    dk, dw = bucket_fill(skey, sw, 0, width=ch.width,
+                                         B=ch.n_buckets, CS=CS)
+                    filled.append(torch.count_nonzero(dw))
+                with span("bucket.join"):
+                    grid = bucket_counts(ch.key, dk, dw)
+                with span("bucket.bin"):
+                    seg = grid.clamp_(max=H - 1).add_(base)
+                    hist.index_add_(0, seg.view(-1),
+                                    one.expand(seg.numel()))
+        self.counters["chunk_joins"] += len(self.chunks)
+        want = torch.stack([n * geos.count(g) for g, n in n_in.items()])
+        return (hist[:nb].view(G, H).to(torch.int32),
+                want.sum() - torch.stack(filled).sum())

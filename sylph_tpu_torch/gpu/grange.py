@@ -597,20 +597,24 @@ def _chunk_hist_lossless(ikey, gid_grid, skey, sw, base: int, *,
 
 
 @spanned("fold")
-def fold_stream(keys: torch.Tensor):
+def fold_stream(keys: torch.Tensor, clamp: int = HIST_H - 1):
     """(distinct keys int64 in uint64 order, uint8 weights) of an
     occurrence stream of int64 keys (any shape and order, -1 pads
     anywhere) on its device: the reference's kmer_counts multiplicity map
     (sylph src/sketch.rs:930-939). The pads are dropped before the sort,
     which runs on ``u64_order`` as the JAX package sorts its uint64 keys;
-    weights clamp at H-1 losslessly, as in ``upload_sample``."""
+    weights clamp at ``clamp`` (H-1 of the caller's histogram, at most
+    255) losslessly, as in ``upload_sample``."""
+    if not 1 <= clamp <= 255:
+        raise ValueError(f"uint8 weights hold a clamp of 1 to 255, not "
+                         f"{clamp}")
     flat = keys.reshape(-1)
     with wait("fold.mask"):
         live = flat[flat != KEY_PAD]
     live = torch.sort(u64_order(live)).values
     with wait("fold.unique"):
         skey, cnt = torch.unique_consecutive(live, return_counts=True)
-    return u64_order(skey), cnt.clamp(max=HIST_H - 1).to(torch.uint8)
+    return u64_order(skey), cnt.clamp(max=clamp).to(torch.uint8)
 
 
 def _quantize_p(want: float, t=None) -> int:

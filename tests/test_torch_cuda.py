@@ -1864,3 +1864,63 @@ def test_stream_graph_capture_counts_exactly_with_another_thread(cuda,
     for g in (got, got_other[0], again):
         assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
     assert eng.counters["stream_graph_replays"] == 1
+
+
+def test_bucket_engine_on_card_matches_cpu_syncing_only_in_the_fold(
+        cuda, monkeypatch):
+    """The bucket regime's engine (BucketEngine.hist_device_stream) over
+    four chunks gives the CPU path's histogram and probe bit for bit, at
+    H = 64 and 256 and at a sample capacity too small for the sample; and
+    under set_sync_debug_mode("error") the call's only host syncs are the
+    fold's two named waits (each let through, and recorded, by a stand-in
+    for ``wait``)."""
+    import contextlib
+
+    from sylph_tpu_torch.gpu.containment import build_host_index
+    rng = np.random.default_rng(5)
+    c, G, kpg, chunk = 200, 30, 2000, 1 << 14
+    thr = ((1 << 64) - 1) // c
+    keys = rng.permutation(np.unique(rng.integers(
+        0, thr, size=2 * G * kpg, dtype=np.uint64)))[:G * kpg]
+    genomes = [keys[g * kpg:(g + 1) * kpg] for g in range(G)]
+    index = build_host_index(genomes, pad_multiple=bj.padded_slots(
+        G * kpg, chunk))
+    cpu = bj.BucketEngine(index, c, chunk=chunk, device="cpu")
+    card = bj.BucketEngine(index, c, chunk=chunk, device=cuda)
+    assert len(card.chunks) == 4
+    occ = np.concatenate(
+        [np.repeat(genomes[g], rng.poisson(lam, size=kpg))
+         for g, lam in ((3, 0.4), (11, 5.0), (29, 120.0))]
+        + [rng.integers(0, thr, size=20000, dtype=np.uint64)]).view(np.int64)
+    stream = torch.from_numpy(rng.permutation(
+        np.concatenate([occ, np.full(999, -1, np.int64)])))
+    waits = []
+
+    @contextlib.contextmanager
+    def named(name):
+        waits.append(name)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    for H, cs in ((64, None), (256, None), (256, 8)):
+        want = cpu.hist_device_stream(stream, n_buckets=H, cs=cs)
+        on = stream.to(cuda)
+        card.hist_device_stream(on, n_buckets=H, cs=cs)     # builds, warms
+        torch.cuda.synchronize()
+        waits.clear()
+        with monkeypatch.context() as m:
+            m.setattr(gr, "wait", named)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = card.hist_device_stream(on, n_buckets=H, cs=cs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert waits == ["fold.mask", "fold.unique"]
+        _equal(got, want)
+        assert (int(want[1]) > 0) == (cs == 8)
+        assert int(want[0][:, 1:].sum()) > 0
+    assert card.counters == {"stream_hists": 6, "chunk_joins": 24,
+                             "refills": 0}
